@@ -1,0 +1,72 @@
+"""Dispatch for the port's kernels, after ``repro/kernels/ops.py``.
+
+A CUDA tensor goes to the hand-written kernel and a CPU tensor to its plain
+version (the wrappers decide by the tensor's device).  ``set_backend("ref")``
+is the one way to send a CUDA tensor to the plain version: only the tests
+and ``chip_smoke.py``'s comparison phases call it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import corr as corr_kernel
+from repro_torch.kernels import lastlayer_grad as llg_kernel
+from repro_torch.kernels import ref
+
+_FORCE: str | None = None   # "ref" | None (by the tensor's device)
+
+
+def set_backend(mode: str | None) -> None:
+    """Send every tensor to the plain versions ('ref'), or dispatch by the
+    tensor's device again (None)."""
+    global _FORCE
+    if mode not in (None, "ref"):
+        raise ValueError(f"unknown kernel backend {mode!r}")
+    _FORCE = mode
+
+
+def active_mode() -> str:
+    """The dispatch mode in effect: 'ref' when forced, else 'cuda' when a
+    card is present (CPU tensors take the plain versions either way)."""
+    if _FORCE is not None:
+        return _FORCE
+    return "cuda" if torch.cuda.is_available() else "ref"
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last ``reset_launch_counts``."""
+    return {**corr_kernel.launches, **llg_kernel.launches}
+
+
+def reset_launch_counts() -> None:
+    for counts in (corr_kernel.launches, llg_kernel.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def corr(grads: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+    """OMP scores ``G @ r`` -> (n,) f32."""
+    if _FORCE == "ref":
+        return ref.corr_ref(grads, residual)
+    return corr_kernel.corr(grads, residual)
+
+
+def corr_argmax(colcache: torch.Tensor, w: torch.Tensor, base: torch.Tensor,
+                mask: torch.Tensor, *, absolute: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused OMP scoring: masked argmax of ``base - colcache @ w``."""
+    if _FORCE == "ref":
+        return ref.corr_argmax_ref(colcache, w, base, mask,
+                                   absolute=absolute)
+    return corr_kernel.corr_argmax(colcache, w, base, mask,
+                                   absolute=absolute)
+
+
+def lastlayer_grad(hidden: torch.Tensor, logits: torch.Tensor,
+                   labels: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(resid, per-gradient hidden grad) for classification heads."""
+    if _FORCE == "ref":
+        return ref.lastlayer_grad_ref(hidden, logits, labels)
+    return llg_kernel.lastlayer_grad(hidden, logits, labels)

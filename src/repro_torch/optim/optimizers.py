@@ -1,0 +1,60 @@
+"""SGD with momentum, Nesterov and weight decay, after
+``repro/optim/optimizers.py:sgd``.
+
+The learning rate is read at the step count *before* the increment, weight
+decay is added to the gradient before momentum, and there is no dampening:
+``m = momentum * m + (g + wd * p)`` and ``p -= lr(step) * m``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Union
+
+import torch
+
+Schedule = Union[float, Callable[[int], float]]
+
+
+class SGD(torch.optim.Optimizer):
+    """Paper default: momentum 0.9, weight decay 5e-4, cosine-annealed lr.
+
+    ``lr`` is a float or a ``step -> lr`` schedule; ``step_count`` is the
+    number of steps taken so far.
+    """
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: Schedule,
+                 momentum: float = 0.0, weight_decay: float = 0.0,
+                 nesterov: bool = False):
+        super().__init__(params, dict(momentum=momentum,
+                                      weight_decay=weight_decay,
+                                      nesterov=nesterov))
+        self.schedule = lr if callable(lr) else (lambda _step: float(lr))
+        self.step_count = 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        lr_t = self.schedule(self.step_count)
+        for group in self.param_groups:
+            mom, wd = group["momentum"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.float()
+                if wd:
+                    g = g + wd * p.float()
+                if mom:
+                    state = self.state[p]
+                    m = state.get("momentum")
+                    m = g.clone() if m is None else mom * m + g
+                    state["momentum"] = m
+                    d = g + mom * m if group["nesterov"] else m
+                else:
+                    d = g
+                p.add_((-lr_t * d).to(p.dtype))
+        self.step_count += 1
+
+
+def sgd(params: Iterable[torch.Tensor], lr: Schedule, momentum: float = 0.0,
+        weight_decay: float = 0.0, nesterov: bool = False) -> SGD:
+    return SGD(params, lr, momentum=momentum, weight_decay=weight_decay,
+               nesterov=nesterov)

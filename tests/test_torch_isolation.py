@@ -1,0 +1,81 @@
+"""Guards of the port's boundaries: ``src/repro_torch`` and
+``chip_smoke.py`` import neither JAX nor the JAX package, importing the
+trainer loads no JAX, and the entry points refuse to run quietly on the CPU
+when no card is present."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for must in ("src/repro_torch/train/trainer.py",
+                 "src/repro_torch/kernels/ops.py", "chip_smoke.py"):
+        assert must in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_imports(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_trainer_import_loads_no_jax():
+    code = ("import sys; import repro_torch.train.trainer; "
+            "import repro_torch.kernels.ops; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad; print('ok')")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_entry_points_refuse_the_cpu_without_being_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.configs.paper import mlp
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.train.trainer import AdaptiveTrainer, TrainerConfig
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_classification(n=16, dim=4)
+    ds = make_classification(n=16, dim=4, num_classes=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AdaptiveTrainer(mlp(in_dim=4, num_classes=2), TrainerConfig(), ds, ds)
+    # asked for explicitly, the CPU is fine
+    AdaptiveTrainer(mlp(in_dim=4, num_classes=2), TrainerConfig(), ds, ds,
+                    device="cpu")
+
+
+def test_chip_smoke_fails_without_a_card_and_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
