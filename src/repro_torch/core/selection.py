@@ -2,9 +2,13 @@
 after ``repro/core/selection.py``.
 
 ``select()`` maps a strategy name to its selector over a proxy matrix.  The
-port has ``gradmatch`` (per-class and pooled), ``gradmatch-pb``, ``random``
-and ``full``; the reference's other strategies raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+port has ``gradmatch`` (per-class and pooled), ``gradmatch-pb``, the CRAIG
+greedy tiers (``craig`` = dense oracle, ``craig-lazy`` = certified lazy
+greedy with identical selections, ``craig-lazy-otf`` = the same with the
+similarity rebuilt on the fly, ``craig-stochastic`` = seeded stochastic
+greedy), ``craig-pb``, ``glister``, ``random`` and ``full``; the
+reference's other strategies raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 
 ``warm_start_epochs()`` is the paper's warm-start budget split (§4), and
 ``SelectionSchedule`` answers "is epoch t a selection epoch?".
@@ -17,23 +21,30 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import craig as craig_lib
+from repro_torch.core import glister as glister_lib
 from repro_torch.core import gradmatch as gm_lib
 from repro_torch.core import random_sel
 from repro_torch.core.gradmatch import SelectionResult
 
-STRATEGIES = ("gradmatch", "gradmatch-pb", "random", "full")
+STRATEGIES = ("gradmatch", "gradmatch-pb", "craig", "craig-lazy",
+              "craig-lazy-otf", "craig-stochastic", "craig-pb", "glister",
+              "random", "full")
+
+# CRAIG tiers of the shared greedy engine (core/greedy.py): "craig-lazy"
+# selects index-identically to "craig"; "craig-lazy-otf" is the same lazy
+# greedy with the similarity rebuilt from the gradients on the fly;
+# "craig-stochastic" is the seeded approximate tier.
+_CRAIG_METHODS = {"craig": "dense", "craig-lazy": "lazy",
+                  "craig-lazy-otf": "lazy",
+                  "craig-stochastic": "stochastic"}
+_CRAIG_ON_THE_FLY = frozenset({"craig-lazy-otf"})
 
 # Strategies of the JAX package that later slices port (ROADMAP.md queue 1).
 NOT_PORTED = {
     "gradmatch-stream": "queue 1 item 6 (core/streaming.py)",
     "gradmatch-partitioned": "queue 1 item 9 (core/partition.py)",
     "gradmatch-continual": "queue 1 item 8 (continual selection)",
-    "craig": "queue 1 item 7 (CRAIG/GLISTER)",
-    "craig-lazy": "queue 1 item 7 (CRAIG/GLISTER)",
-    "craig-lazy-otf": "queue 1 item 7 (CRAIG/GLISTER)",
-    "craig-stochastic": "queue 1 item 7 (CRAIG/GLISTER)",
-    "craig-pb": "queue 1 item 7 (CRAIG/GLISTER)",
-    "glister": "queue 1 item 7 (CRAIG/GLISTER)",
 }
 
 
@@ -63,10 +74,11 @@ def select(
 ) -> SelectionResult:
     """Resolve one selection round.  ``val_target`` switches isValid=True.
 
-    ``gradmatch-pb`` interprets ``k`` as an example budget and converts it
-    to ``k // batch_size`` mini-batches; its result indexes *batches* — use
+    PB variants interpret ``k`` as an example budget and convert it to
+    ``k // batch_size`` mini-batches; their result indexes *batches* — use
     ``expand_if_pb`` to map back to examples.  ``generator`` draws the
-    ``random`` subset and is unused by the other strategies.
+    ``random`` subset and the ``craig-stochastic`` samples (default there:
+    seeded 0 on the proxies' device); the other strategies do not use it.
     """
     check_strategy(strategy)
     n = proxies.shape[0]
@@ -89,9 +101,19 @@ def select(
                 method=omp_method)
         return gm_lib.gradmatch(proxies, k, target=val_target, lam=lam,
                                 eps=eps, method=omp_method)
-    return gm_lib.gradmatch_pb(
-        proxies, batch_size, max(k // batch_size, 1), lam=lam, eps=eps,
-        target=val_target, method=omp_method)
+    if strategy == "gradmatch-pb":
+        return gm_lib.gradmatch_pb(
+            proxies, batch_size, max(k // batch_size, 1), lam=lam, eps=eps,
+            target=val_target, method=omp_method)
+    if strategy in _CRAIG_METHODS:
+        return craig_lib.craig(
+            proxies, k, method=_CRAIG_METHODS[strategy], generator=generator,
+            on_the_fly=True if strategy in _CRAIG_ON_THE_FLY else None)
+    if strategy == "craig-pb":
+        return craig_lib.craig_pb(proxies, batch_size,
+                                  max(k // batch_size, 1))
+    tgt = val_target if val_target is not None else proxies.sum(0)
+    return glister_lib.glister(proxies, tgt, k)
 
 
 def expand_if_pb(strategy: str, sel: SelectionResult, batch_size: int,

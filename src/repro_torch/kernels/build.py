@@ -109,7 +109,13 @@ def _declare(lib: ctypes.CDLL) -> None:
                                    p, p, p]
     lib.rt_lastlayer_grad.argtypes = [i32, p, p, p, i32, p, p, i64, i64, i64,
                                       p]
-    for fn in (lib.rt_corr, lib.rt_corr_argmax, lib.rt_lastlayer_grad):
+    lib.rt_fl_gain_argmax.argtypes = [i32, p, p, p, i64, p, p, p, p, p]
+    lib.rt_fl_gain_argmax_otf.argtypes = [i32, p, p, p, p, p, p, i64, i64, p,
+                                          p, p, p, p]
+    lib.rt_sqdist.argtypes = [i32, p, p, i32, p, p, i64, i64, i64, p, p]
+    for fn in (lib.rt_corr, lib.rt_corr_argmax, lib.rt_lastlayer_grad,
+               lib.rt_fl_gain_argmax, lib.rt_fl_gain_argmax_otf,
+               lib.rt_sqdist):
         fn.restype = i32
     lib.rt_error_string.argtypes = [i32]
     lib.rt_error_string.restype = ctypes.c_char_p

@@ -62,9 +62,69 @@ __device__ __forceinline__ float row_dot(const T* __restrict__ row,
   return warp_sum(acc);
 }
 
+// Masked argmax across parallel blocks.  A candidate's (score, index) packs
+// into one 64-bit key: order-preserving float bits (with -0.0 folded onto
+// +0.0, so equal scores compare equal) over the bitwise-inverted index.
+// The max key is the highest score and, among equal scores, the lowest
+// index, so one atomicMax per block folds the blocks in any order and
+// keeps the reference's tie rule.  0 is below every key (the key of -inf
+// is 0x007fffff'xxxxxxxx), so a scratch word memset to 0 starts the fold,
+// and an all-masked input (every score -inf) decodes to (0, -inf).
+__device__ __forceinline__ unsigned long long pack_key(float s, int64_t i) {
+  if (s == 0.f) s = 0.f;
+  unsigned int u = __float_as_uint(s);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(u) << 32) |
+         static_cast<unsigned long long>(~static_cast<unsigned int>(i));
+}
+
+__device__ __forceinline__ unsigned long long warp_max_key(
+    unsigned long long k) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(0xffffffffu, k, off);
+    k = o > k ? o : k;
+  }
+  return k;
+}
+
+namespace {
+
+// One thread decodes the folded key into (index, value).  Internal
+// linkage: every source that includes this header has its own copy.
+__global__ void argmax_decode_kernel(
+    const unsigned long long* __restrict__ best, int* __restrict__ idx,
+    float* __restrict__ val) {
+  const unsigned long long k = *best;
+  if (k == 0ull) {  // no rows at all
+    *idx = 0;
+    *val = -INFINITY;
+    return;
+  }
+  unsigned int u = static_cast<unsigned int>(k >> 32);
+  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+  *idx = static_cast<int>(~static_cast<unsigned int>(k & 0xffffffffull));
+  *val = __uint_as_float(u);
+}
+
+}  // namespace
+
 inline int64_t blocks_for_rows(int64_t n) {
   const int64_t b = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   return b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b);
+}
+
+// Start and finish a masked argmax fold on stream s: zero the key word,
+// run `launch` (which folds keys into it), decode into idx/val.
+template <typename Launch>
+cudaError_t argmax_fold(void* best, int* idx, float* val, cudaStream_t s,
+                        Launch launch) {
+  auto* b = static_cast<unsigned long long*>(best);
+  cudaError_t e = cudaMemsetAsync(b, 0, sizeof(unsigned long long), s);
+  if (e != cudaSuccess) return e;
+  launch(b);
+  argmax_decode_kernel<<<1, 1, 0, s>>>(b, idx, val);
+  return cudaGetLastError();
 }
 
 }  // namespace repro_torch

@@ -22,16 +22,6 @@
 namespace repro_torch {
 namespace {
 
-// Order-preserving map of a float to 32 bits, with -0.0 folded onto +0.0 so
-// that equal scores compare equal, packed over the inverted index.
-__device__ __forceinline__ unsigned long long pack_key(float s, int64_t i) {
-  if (s == 0.f) s = 0.f;
-  unsigned int u = __float_as_uint(s);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<unsigned long long>(u) << 32) |
-         static_cast<unsigned long long>(~static_cast<unsigned int>(i));
-}
-
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 corr_kernel(const T* __restrict__ g, const float* __restrict__ r,
@@ -77,21 +67,6 @@ corr_argmax_kernel(const float* __restrict__ c, const float* __restrict__ w,
   }
 }
 
-__global__ void argmax_decode_kernel(const unsigned long long* __restrict__ best,
-                                     int* __restrict__ idx,
-                                     float* __restrict__ val) {
-  const unsigned long long k = *best;
-  if (k == 0ull) {  // no rows at all
-    *idx = 0;
-    *val = -INFINITY;
-    return;
-  }
-  unsigned int u = static_cast<unsigned int>(k >> 32);
-  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
-  *idx = static_cast<int>(~static_cast<unsigned int>(k & 0xffffffffull));
-  *val = __uint_as_float(u);
-}
-
 template <typename T, bool VEC>
 void launch_corr(const void* g, const float* r, float* out, int64_t n,
                  int64_t d, cudaStream_t s) {
@@ -109,6 +84,7 @@ void launch_corr_argmax(const float* c, const float* w, const float* base,
 }
 
 }  // namespace
+
 }  // namespace repro_torch
 
 using namespace repro_torch;
@@ -142,13 +118,11 @@ int rt_corr_argmax(int device, const float* c, const float* w,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* b = static_cast<unsigned long long*>(best);
-  e = cudaMemsetAsync(b, 0, sizeof(unsigned long long), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (vec) launch_corr_argmax<true>(c, w, base, mask, n, p, absolute, b, s);
-  else launch_corr_argmax<false>(c, w, base, mask, n, p, absolute, b, s);
-  argmax_decode_kernel<<<1, 1, 0, s>>>(b, idx, val);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      argmax_fold(best, idx, val, s, [&](unsigned long long* b) {
+    if (vec) launch_corr_argmax<true>(c, w, base, mask, n, p, absolute, b, s);
+    else launch_corr_argmax<false>(c, w, base, mask, n, p, absolute, b, s);
+  }));
 }
 
 const char* rt_error_string(int code) {

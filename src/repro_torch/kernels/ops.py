@@ -11,8 +11,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import corr as corr_kernel
+from repro_torch.kernels import fl_gain as fl_gain_kernel
 from repro_torch.kernels import lastlayer_grad as llg_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import sqdist as sqdist_kernel
+
+_COUNTERS = (corr_kernel.launches, llg_kernel.launches,
+             fl_gain_kernel.launches, sqdist_kernel.launches)
 
 _FORCE: str | None = None   # "ref" | None (by the tensor's device)
 
@@ -36,11 +41,11 @@ def active_mode() -> str:
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last ``reset_launch_counts``."""
-    return {**corr_kernel.launches, **llg_kernel.launches}
+    return {name: n for counts in _COUNTERS for name, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (corr_kernel.launches, llg_kernel.launches):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
 
@@ -70,3 +75,35 @@ def lastlayer_grad(hidden: torch.Tensor, logits: torch.Tensor,
     if _FORCE == "ref":
         return ref.lastlayer_grad_ref(hidden, logits, labels)
     return llg_kernel.lastlayer_grad(hidden, logits, labels)
+
+
+def fl_gain_argmax(sim: torch.Tensor, cover: torch.Tensor,
+                   mask: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Facility-location gain scan + masked argmax over a resident
+    similarity -> (gains (n,), index (), value ())."""
+    if _FORCE == "ref":
+        return ref.fl_gain_argmax_ref(sim, cover, mask)
+    return fl_gain_kernel.fl_gain_argmax(sim, cover, mask)
+
+
+def fl_gain_argmax_otf(grads: torch.Tensor, cover: torch.Tensor,
+                       row_ok: torch.Tensor, mask: torch.Tensor,
+                       l_max: torch.Tensor,
+                       sqnorms: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The same scan with the similarity built tile by tile from ``grads``
+    (n, d); ``sqnorms`` hands in the squared row norms when the caller
+    holds them."""
+    if _FORCE == "ref":
+        return ref.fl_gain_argmax_otf_ref(grads, cover, row_ok, mask, l_max,
+                                          sqnorms=sqnorms)
+    return fl_gain_kernel.fl_gain_argmax_otf(grads, cover, row_ok, mask,
+                                             l_max, sqnorms=sqnorms)
+
+
+def sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distances (n, d), (m, d) -> (n, m) f32."""
+    if _FORCE == "ref":
+        return ref.sqdist_ref(a, b)
+    return sqdist_kernel.sqdist(a, b)

@@ -31,6 +31,11 @@ from repro_torch.optim import cosine_annealing, sgd
 from repro_torch.train import steps as steps_lib
 
 
+# Strategies that select over the per-gradient proxy (the reference's
+# trainer: repro/train/trainer.py, where "craig-lazy-otf" is not listed).
+_PER_GRADIENT = ("gradmatch", "craig", "craig-lazy", "craig-stochastic")
+
+
 @dataclass
 class TrainerConfig:
     strategy: str = "gradmatch-pb"     # see core.selection.STRATEGIES
@@ -101,11 +106,12 @@ class AdaptiveTrainer:
             _, vbias = proxy_fn(self.val_ds.x, self.val_ds.y)
             val_target = vbias.sum(dim=0)
         pcg, bias = proxy_fn(self.train_ds.x, self.train_ds.y)
-        # PB variants use the bias-gradient proxy (comparable across
-        # classes); per-class GRAD-MATCH uses the per-gradient proxy within
-        # each class (paper §4).
+        # PB variants, GLISTER and CRAIG on the fly use the bias-gradient
+        # proxy (comparable across classes); GRAD-MATCH and the resident
+        # CRAIG tiers use the per-gradient proxy (paper §4).
         per_class_ok = not tc.is_valid and tc.per_class
-        proxies = pcg if (tc.strategy == "gradmatch" and per_class_ok) else bias
+        proxies = pcg if (tc.strategy in _PER_GRADIENT and per_class_ok
+                          ) else bias
         sel = sel_lib.select(
             tc.strategy, generator, proxies, k,
             labels=self.train_ds.y, num_classes=self.train_ds.num_classes,

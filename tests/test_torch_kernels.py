@@ -18,9 +18,16 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.corr import corr as pallas_corr  # noqa: E402
 from repro.kernels.corr import corr_argmax as pallas_corr_argmax  # noqa: E402
+from repro.kernels.fl_gain import (  # noqa: E402
+    fl_gain_argmax as pallas_fl_gain_argmax)
+from repro.kernels.fl_gain import (  # noqa: E402
+    fl_gain_argmax_otf as pallas_fl_gain_argmax_otf)
 from repro.kernels.lastlayer_grad import (  # noqa: E402
     lastlayer_grad as pallas_lastlayer_grad)
+from repro.kernels.sqdist import sqdist as pallas_sqdist  # noqa: E402
 from repro_torch.kernels import corr as corr_kernel  # noqa: E402
+from repro_torch.kernels import fl_gain as fl_gain_kernel  # noqa: E402
+from repro_torch.kernels import sqdist as sqdist_kernel  # noqa: E402
 from repro_torch.kernels import lastlayer_grad as llg_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -156,7 +163,154 @@ def test_dispatch_modes_and_counts():
         finally:
             ops.set_backend(None)
     assert ops.launch_counts() == {"corr": 0, "corr_argmax": 0,
-                                   "lastlayer_grad": 0}
+                                   "lastlayer_grad": 0, "fl_gain_argmax": 0,
+                                   "fl_gain_argmax_otf": 0, "sqdist": 0}
     for mode in ("pallas", "cuda"):
         with pytest.raises(ValueError):
             ops.set_backend(mode)
+
+
+# ---------------------------------------------------------------------------
+# sqdist, fl_gain_argmax, fl_gain_argmax_otf (the shapes and tolerances of
+# tests/test_kernels.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,m", [(1, 1), (9, 17), (100, 90), (128, 128)])
+@pytest.mark.parametrize("d", [3, 130])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sqdist_plain_matches_jax(n, m, d, dtype):
+    rng = np.random.default_rng(n * 13 + m + d)
+    a = rng.standard_normal((n, d)).astype(np.float32)
+    b = rng.standard_normal((m, d)).astype(np.float32)
+    ta = torch.from_numpy(a).to(getattr(torch, dtype))
+    tb = torch.from_numpy(b).to(getattr(torch, dtype))
+    got = ref.sqdist_ref(ta, tb)
+    assert got.dtype == torch.float32 and got.shape == (n, m)
+    ja = jnp.asarray(a).astype(getattr(jnp, dtype))
+    jb = jnp.asarray(b).astype(getattr(jnp, dtype))
+    tol = 1e-3 if dtype == "float32" else 5e-2
+    for want in (jref.sqdist_ref(ja, jb),
+                 pallas_sqdist(ja, jb, interpret=True)):
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=tol,
+                                   atol=tol * 10)
+    np.testing.assert_array_equal(sqdist_kernel.sqdist(ta, tb).numpy(),
+                                  got.numpy())
+
+
+def _fl_case(seed, n, d):
+    """grads, the resident similarity built from them, l_max, cover and a
+    candidate mask, in numpy."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((n, d)).astype(np.float32)
+    sq = (g * g).sum(1)
+    dist = np.sqrt(np.maximum(sq[:, None] + sq[None, :] - 2.0 * g @ g.T, 0))
+    lm = np.float32(dist.max())
+    sim = (lm - dist).astype(np.float32)
+    cover = np.abs(rng.standard_normal(n)).astype(np.float32)
+    mask = rng.random(n) < 0.7
+    return g, sim, lm, cover, mask
+
+
+def _check_fl(got, wants, tol):
+    """(gains, idx, val) of the port against each JAX triple: gains to
+    ``tol``, the index equal, an all-masked input (0, -inf)."""
+    gg, gi, gv = got
+    assert gg.dtype == torch.float32 and gi.dtype == torch.int32
+    assert gi.shape == () and gv.shape == ()
+    for wg, wi, wv in wants:
+        np.testing.assert_allclose(gg.numpy(), _np(wg), rtol=tol, atol=tol)
+        if np.isfinite(float(wv)):
+            assert int(gi) == int(wi)
+            np.testing.assert_allclose(float(gv), float(wv), rtol=tol,
+                                       atol=tol)
+        else:
+            assert int(gi) == int(wi) == 0 and float(gv) == float(wv)
+
+
+@pytest.mark.parametrize("n", [1, 9, 128, 300])
+@pytest.mark.parametrize("d", [4, 70])
+def test_fl_gain_argmax_plain_matches_jax(n, d):
+    _, sim, _, cover, mask = _fl_case(30 + n, n, d)
+    args = (torch.from_numpy(sim), torch.from_numpy(cover),
+            torch.from_numpy(mask))
+    got = ref.fl_gain_argmax_ref(*args)
+    jargs = (jnp.asarray(sim), jnp.asarray(cover), jnp.asarray(mask))
+    _check_fl(got, (jref.fl_gain_argmax_ref(*jargs),
+                    pallas_fl_gain_argmax(*jargs, interpret=True)), 1e-4)
+    wrapped = fl_gain_kernel.fl_gain_argmax(*args)
+    for a, b in zip(wrapped, got):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_fl_gain_argmax_plain_ties_and_all_masked():
+    """All-equal similarity: the first unmasked column wins, also when the
+    tie lies in a later 128-column tile; an all-False mask gives
+    (0, -inf)."""
+    n = 300
+    sim = np.ones((n, n), np.float32)
+    cover = np.zeros(n, np.float32)
+    mask = np.ones(n, bool)
+    mask[0] = False
+    sim2 = sim.copy()
+    sim2[:, [200, 260]] = 2.0
+    for s, want in ((sim, 1), (sim2, 200)):
+        got = ref.fl_gain_argmax_ref(torch.from_numpy(s),
+                                     torch.from_numpy(cover),
+                                     torch.from_numpy(mask))
+        jargs = (jnp.asarray(s), jnp.asarray(cover), jnp.asarray(mask))
+        _check_fl(got, (jref.fl_gain_argmax_ref(*jargs),
+                        pallas_fl_gain_argmax(*jargs, interpret=True)), 1e-4)
+        assert int(got[1]) == want
+    _, sim, _, cover, _ = _fl_case(32, 140, 8)
+    none = np.zeros(140, bool)
+    got = ref.fl_gain_argmax_ref(torch.from_numpy(sim),
+                                 torch.from_numpy(cover),
+                                 torch.from_numpy(none))
+    jargs = (jnp.asarray(sim), jnp.asarray(cover), jnp.asarray(none))
+    _check_fl(got, (jref.fl_gain_argmax_ref(*jargs),
+                    pallas_fl_gain_argmax(*jargs, interpret=True)), 1e-4)
+
+
+@pytest.mark.parametrize("n", [1, 9, 150, 260])
+@pytest.mark.parametrize("d", [3, 64, 600])
+def test_fl_gain_argmax_otf_plain_matches_jax(n, d):
+    """The on-the-fly scan against the JAX on-the-fly reference, the
+    Pallas kernel and the resident scan, with a third of the rows invalid
+    (they demand no coverage) and sqnorms given or not."""
+    g, sim, lm, cover, mask = _fl_case(31 + n, n, d)
+    rok = np.arange(n) % 3 != 1
+    tg = torch.from_numpy(g)
+    targs = (torch.from_numpy(cover), torch.from_numpy(rok),
+             torch.from_numpy(mask), torch.tensor(lm))
+    got = ref.fl_gain_argmax_otf_ref(tg, *targs, block=64)
+    jargs = (jnp.asarray(g), jnp.asarray(cover), jnp.asarray(rok),
+             jnp.asarray(mask), jnp.asarray(lm))
+    resident = jref.fl_gain_argmax_ref(
+        jnp.asarray(sim * rok[:, None]), jnp.asarray(cover),
+        jnp.asarray(mask))
+    _check_fl(got, (jref.fl_gain_argmax_otf_ref(*jargs, block=64),
+                    pallas_fl_gain_argmax_otf(*jargs, interpret=True),
+                    resident), 1e-3)
+    sqn = (tg * tg).sum(1)
+    wrapped = fl_gain_kernel.fl_gain_argmax_otf(tg, *targs, sqnorms=sqn)
+    plain = ref.fl_gain_argmax_otf_ref(tg, *targs, sqnorms=sqn)
+    for a, b in zip(wrapped, plain):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_fl_gains_cols_plain_matches_jax():
+    """The blocked column scan shared by the full on-the-fly scan and the
+    lazy engine's wide refresh, on a candidate slice."""
+    g, _, lm, cover, _ = _fl_case(34, 200, 12)
+    rok = (np.arange(200) % 5 != 0).astype(np.float32)
+    sqn = (g * g).sum(1)
+    ids = np.arange(0, 200, 7)
+    got = ref.fl_gains_cols_ref(
+        torch.from_numpy(g[ids]), torch.from_numpy(sqn[ids]),
+        torch.from_numpy(g), torch.from_numpy(sqn), torch.from_numpy(cover),
+        torch.from_numpy(rok), torch.tensor(lm), block=64)
+    want = jref.fl_gains_cols_ref(
+        jnp.asarray(g[ids]), jnp.asarray(sqn[ids]), jnp.asarray(g),
+        jnp.asarray(sqn), jnp.asarray(cover), jnp.asarray(rok),
+        jnp.asarray(lm), block=64)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)

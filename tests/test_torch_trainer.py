@@ -42,7 +42,8 @@ def _cfg(mod, hp, **kw):
     return mod.TrainerConfig(**kw)
 
 
-@pytest.mark.parametrize("strategy", ["gradmatch", "gradmatch-pb"])
+@pytest.mark.parametrize("strategy", ["gradmatch", "gradmatch-pb",
+                                      "craig-pb", "glister"])
 def test_first_selection_round_matches_jax(numpy_data, strategy):
     (xt, yt), (xv, yv) = numpy_data
     params = jax.tree_util.tree_map(
@@ -68,6 +69,70 @@ def test_first_selection_round_matches_jax(numpy_data, strategy):
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(float(got.err), float(want.err), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("strategy", ["craig-lazy", "craig-lazy-otf"])
+def test_first_craig_round_matches_jax_on_exact_proxies(numpy_data,
+                                                         strategy,
+                                                         monkeypatch):
+    """The CRAIG tiers' first selection round against the JAX trainer's.
+
+    Both trainers get the same proxies: the JAX model's, rounded to
+    multiples of 1/64, so every distance CRAIG builds from them is exact
+    in f32 in both packages.  From the models' own proxies (equal to a few
+    ulps) the two packages' ``|g_i|^2 + |g_j|^2 - 2 g_i.g_j`` differ by up
+    to ~4e-3 of similarity on the diagonal after the sqrt, which moves
+    near-tied picks; ``tests/test_torch_greedy.py`` holds the engine on
+    exact inputs and ``tests/test_torch_model.py`` the proxies.  The two
+    proxies differ, so a wrong proxy choice (per-gradient for
+    ``craig-lazy``, bias for ``craig-lazy-otf``) changes the picks.
+    """
+    (xt, yt), (xv, yv) = numpy_data
+    cfg = jmlp(in_dim=24, num_classes=8)
+    params = jax.tree_util.tree_map(
+        np.asarray, init_classifier(cfg, jax.random.PRNGKey(3)))
+    jt = jtrainer.AdaptiveTrainer(
+        cfg, _cfg(jtrainer, JHP, strategy=strategy),
+        jsyn.Dataset(jnp.asarray(xt), jnp.asarray(yt), 8),
+        jsyn.Dataset(jnp.asarray(xv), jnp.asarray(yv), 8))
+    pcg, bias = (np.round(np.asarray(p) * 64).astype(np.float32) / 64
+                 for p in jt.proxy_fn(params, jnp.asarray(xt),
+                                      jnp.asarray(yt)))
+    jt.proxy_fn = lambda *_: (jnp.asarray(pcg), jnp.asarray(bias))
+    want, _ = jt._run_selection(params, jax.random.PRNGKey(5))
+    monkeypatch.setattr(
+        ttrainer.steps_lib, "make_proxy_fn",
+        lambda model: lambda x, y: (torch.from_numpy(pcg),
+                                    torch.from_numpy(bias)))
+    tt = ttrainer.AdaptiveTrainer(
+        mlp(in_dim=24, num_classes=8),
+        _cfg(ttrainer, PaperHParams, strategy=strategy),
+        tsyn.Dataset(torch.from_numpy(xt), torch.from_numpy(yt).long(), 8),
+        tsyn.Dataset(torch.from_numpy(xv), torch.from_numpy(yv).long(), 8),
+        device="cpu")
+    got, _ = tt._run_selection(tt.init_model(), None)
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    np.testing.assert_allclose(got.weights.numpy(), np.asarray(want.weights),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(got.err), float(want.err), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("strategy", ["craig-lazy", "glister"])
+def test_craig_and_glister_train_on_cpu(strategy):
+    """The new strategies through ``run()``: two selection rounds, a
+    subset of the budget, learning above chance."""
+    ds = tsyn.make_classification(n=1024, dim=24, num_classes=8, sep=5.0,
+                                  device="cpu")
+    train, val = tsyn.split(ds)
+    rep = ttrainer.AdaptiveTrainer(
+        mlp(in_dim=24, num_classes=8),
+        _cfg(ttrainer, PaperHParams, strategy=strategy, epochs=8), train,
+        val, device="cpu").run()
+    assert rep.selection_rounds == 2
+    assert rep.subset_size == int(train.n * 0.25)
+    assert rep.final_acc > 0.25
 
 
 def test_gradmatch_pb_learns_on_cpu():
