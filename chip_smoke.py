@@ -35,7 +35,21 @@ Phases, one JSON line each:
               ``sqdist`` (``craig-resident``).  Then, on the card: the resident and the
               on-the-fly lazy selections with the kernels and with the plain
               versions (same 4 500 picks, ``err`` to rtol 1e-5), and the
-              dense oracle against the resident lazy greedy at k = 256.
+              dense oracle against the resident lazy greedy at k = 256;
+  8. stream   streaming GRAD-MATCH (``gradmatch-stream``) at the same data
+              and widths: trained end to end through ``AdaptiveTrainer``
+              (bias proxies extracted a chunk of 1 024 at a time, buffer
+              256, 256 MiB cache), its first selection held index-exact
+              against in-memory pooled OMP on the proxies and target the
+              streaming pass saw; then one pooled per-gradient selection
+              (45 000, 65) with the kernels, with the plain versions, and
+              with the plain versions scoring at the pool's shape, each
+              beside in-memory pooled GRAD-MATCH in the same arithmetic
+              (index-exact with the kernels and at the pool's shape); the
+              trainer's first selection again, 1 024 rounds, with half the
+              arena's bytes (LRU eviction, rounds certified by the cached
+              chunks' bound and the sketch of the others, loader passes);
+              and fetched proxy rows bit-equal to the scanned ones.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -80,6 +94,10 @@ PB_ROWS = ROWS // BATCH   # GRAD-MATCHPB's mini-batch proxies: (703, 10)
 WIDE = (8192, 512)        # a full-width column cache of the wide regime
 TRACE_ROUNDS = 32         # OMP rounds in the profiler trace
 PATHS = ("gradmatch", "gradmatch-pb")
+STREAM_CHUNK = 1024       # the trainer's chunk; select()'s is 2 048
+STREAM_BUF = 256 + 512    # buffer + repair annex rows
+PARTIAL_SLOTS = 32        # the partial cache's chunk slots (44 chunks)
+PARTIAL_K = 1024          # rounds of the partial-cache selection
 CRAIG_PATHS = ("craig-lazy", "craig-lazy-otf", "craig-stochastic",
                "craig-pb", "glister", "craig-resident")
 DENSE_K = 256             # rounds of the dense-oracle check
@@ -97,12 +115,15 @@ KERNEL_SOURCES = {
                            "src/repro/kernels/fl_gain.py:174"),
     "sqdist": ("src/repro_torch/kernels/csrc/sqdist.cu",
                "src/repro/kernels/sqdist.py:51"),
+    "bound_max": ("src/repro_torch/kernels/csrc/bound_max.cu",
+                  "src/repro/kernels/corr.py:138"),
 }
 # The path whose shape gives each kernel's top-level numbers.
 MAIN_PATH = {"corr": "gradmatch", "corr_argmax": "gradmatch",
              "lastlayer_grad": "gradmatch",
              "fl_gain_argmax": "craig-resident",
-             "fl_gain_argmax_otf": "craig-lazy", "sqdist": "craig-resident"}
+             "fl_gain_argmax_otf": "craig-lazy", "sqdist": "craig-resident",
+             "bound_max": "gradmatch-stream"}
 
 
 def emit(phase: str, **kw) -> None:
@@ -136,6 +157,25 @@ def device_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
     torch.cuda.synchronize()
     return statistics.median(events[i].elapsed_time(events[i + 1])
                              for i in range(reps))
+
+
+def corr_seconds(torch, shapes: dict) -> tuple[float, list]:
+    """Device seconds of one path's ``corr`` launches: each (rows, d, dtype)
+    the path called it at, timed on random inputs of that shape, times the
+    launches at that shape."""
+    from repro_torch.kernels import corr as corr_k
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    total, table = 0.0, []
+    for (name, n, d, dt), c in sorted(shapes.items()):
+        if name != "corr":
+            continue
+        g = torch.randn((n, d), generator=gen, device="cuda").to(
+            getattr(torch, dt))
+        r = torch.randn((d,), generator=gen, device="cuda")
+        ms = device_ms(torch, lambda: corr_k.corr(g, r))
+        total += c * ms / 1e3
+        table.append({"shape": [n, d], "dtype": dt, "launches": c, "ms": ms})
+    return total, table
 
 
 def phase_device(torch) -> dict:
@@ -184,6 +224,9 @@ def phase_kernels(torch, np, card: dict) -> dict:
     #    f32 and bf16, ragged ------------------------------------------------
     for n, d, dt, paths in ((ROWS, 65, "float32", ("gradmatch",)),
                             (PB_ROWS, 10, "float32", ("gradmatch-pb",)),
+                            (STREAM_BUF, 10, "float32",
+                             ("gradmatch-stream",)),
+                            (STREAM_BUF, 65, "float32", ("stream-pooled",)),
                             (*WIDE, "float32", ()),
                             (*WIDE, "bfloat16", ()),
                             (1000, 700, "float32", ())):
@@ -284,6 +327,8 @@ def phase_kernels(torch, np, card: dict) -> dict:
     for n, dh, nc, ldt, paths in ((ROWS, 64, 10, "int64",
                                    PATHS + CRAIG_PATHS),
                                   (ROWS, 64, 10, "int32", ()),
+                                  (STREAM_CHUNK, 64, 10, "int64",
+                                   ("gradmatch-stream",)),
                                   (1001, 84, 37, "int64", ())):
         h = t(np.maximum(rng.standard_normal((n, dh)), 0).astype(np.float32))
         z = t(3 * rng.standard_normal((n, nc)).astype(np.float32))
@@ -495,6 +540,121 @@ def phase_kernels_fl(torch, np, card: dict, records: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def arena_rows(torch, d: int, chunk: int) -> int:
+    """Rows of the arena a 256 MiB ``ChunkCache`` builds over the main
+    path's rows in chunks of ``chunk``: the engine's own layout (the
+    reference's growth rule: twice the resident slots at each insertion,
+    so 44 chunks of 1 024 end in 86 slots, 22 of 2 048 in 42)."""
+    from repro_torch.core import streaming
+    cache = streaming.ChunkCache(256 << 20, d)
+    zeros = torch.zeros((ROWS, d), device="cuda")
+    streaming.streaming_target(streaming.array_chunks(zeros, chunk),
+                               cache=cache)
+    return cache.cap_rows
+
+
+def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
+    """``bound_max`` against its plain version on the card at the two
+    arenas of the streaming paths, with masks shaped like theirs (empty
+    slots and taken rows off), ``abs`` off and on, thresholds of -inf, +inf
+    and the middle of a gap, and an all-masked input; adds its records.
+
+    Rows and residual lie on a 1/8 grid, so every dot product is exact in
+    f32 and the kernel and the plain version differ only in the rounding
+    of the sidecar term: the value is held to 1e-6 of max |u| (the stated
+    tolerance), the index and the count exactly, the threshold being the
+    middle of a gap wider than that tolerance."""
+    from repro_torch.kernels import corr as corr_k
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    bw, flops = peaks(card["name"])
+    rng = np.random.default_rng(2)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for d, chunk, path in ((10, STREAM_CHUNK, "gradmatch-stream"),
+                           (65, 2 * STREAM_CHUNK, "stream-pooled")):
+        n = arena_rows(torch, d, chunk)
+        rows = t(np.round(rng.standard_normal((n, d)) * 8) / 8).to(
+            torch.bfloat16)
+        r = t((np.round(rng.standard_normal(d) * 8) / 8).astype(np.float32))
+        norms = t(np.sqrt((np.asarray(rows.float().cpu()) ** 2).sum(1))
+                  .astype(np.float32))
+        errn = t((np.abs(rng.standard_normal(n)) / 700).astype(np.float32))
+        acc = d * 2.0 ** -23 * 1.25
+        # The arena holds 44 (or 22) chunks in 86 (or 42) slots: the rest
+        # is empty, and a tenth of the cached rows are taken or in-buffer.
+        used = (ROWS // chunk + 1) * chunk
+        mask = torch.zeros((n,), dtype=torch.bool, device=dev)
+        mask[:used] = t(rng.random(used) > 0.1)
+        mask[ROWS:used] = False
+        err = 0.0
+        for absolute in (False, True):
+            s_ = rows.float() @ r
+            s_ = s_.abs() if absolute else s_
+            u = s_ + (errn + acc * norms) * torch.sqrt((r * r).sum())
+            um = u[mask]
+            tol = 1e-6 * float(um.abs().max())
+            srt = torch.sort(um).values
+            gaps = srt[1:] - srt[:-1]
+            wide = torch.nonzero(gaps > 4 * tol)[:, 0]
+            mid_at = int(wide[len(wide) // 2])
+            mid = float((srt[mid_at] + srt[mid_at + 1]) / 2)
+            for thresh in (float("-inf"), float("inf"), mid):
+                th = torch.full((), thresh, device=dev)
+                gv, gi, gc = corr_k.bound_max(rows, norms, errn, r, acc, th,
+                                              mask, absolute=absolute)
+                wv, wi, wc = ref.bound_max_ref(rows, norms, errn, r, acc, th,
+                                               mask, absolute=absolute)
+                gv, gi, gc = float(gv), int(gi), int(gc)
+                wv, wi, wc = float(wv), int(wi), int(wc)
+                what = f"bound_max ({n}, {d}) abs={absolute} thresh={thresh}"
+                check(abs(gv - wv) <= tol, f"{what}: value {gv} vs {wv}")
+                if gi != wi:
+                    check(bool(mask[gi]) and abs(float(u[gi]) - float(u[wi]))
+                          <= tol, f"{what}: index {gi} vs {wi}")
+                check(gc == wc, f"{what}: count {gc} vs {wc}")
+                err = max(err, abs(gv - wv))
+            check(0 < wc < int(mask.sum()), f"bound_max ({n}, {d}): the "
+                  f"middle threshold counts {wc} rows")
+        none = torch.zeros_like(mask)
+        got = corr_k.bound_max(rows, norms, errn, r, acc, 0.0, none)
+        check((float(got[0]), int(got[1]), int(got[2]))
+              == (float("-inf"), 0, 0), f"bound_max all masked gave {got}")
+        dup = rows.clone()
+        dup[1::2] = dup[::2]
+        dn, de = norms.clone(), errn.clone()
+        dn[1::2], de[1::2] = dn[::2], de[::2]
+        every = torch.ones_like(mask)
+        gi = int(corr_k.bound_max(dup, dn, de, r, acc, 0.0, every)[1])
+        check(gi % 2 == 0, f"bound_max: a tie went to row {gi}")
+        th = torch.full((), mid, device=dev)
+        ms = device_ms(torch, lambda: corr_k.bound_max(
+            rows, norms, errn, r, acc, th, mask, absolute=True))
+        plain = device_ms(torch, lambda: ref.bound_max_ref(
+            rows, norms, errn, r, acc, th, mask, absolute=True))
+        # What this mask needs: every row's mask byte; the bf16 row, norms
+        # and errn of the masked-in rows only (the kernel returns on a
+        # masked-out row before it reads them); the residual, the threshold
+        # and the three outputs.  Operations: ||r|| once, then per masked-in
+        # row the dot and ~6 for the sidecar term, the compare and the fold.
+        m_in = int(mask.sum())
+        nbytes = n + (2 * d + 8) * m_in + 4 * d + 4 + 12
+        nops = 2 * d + (2 * d + 6) * m_in
+        by_bytes, by_ops = nbytes / bw * 1e3, nops / flops * 1e3
+        b, by = (max(by_bytes, by_ops),
+                 "bytes" if by_bytes >= by_ops else "operations")
+        emit("kernels", kernel="bound_max", shape=[n, d], dtype="bfloat16",
+             masked_in=m_in, max_abs_err=err, tolerance=tol,
+             ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+        records["bound_max"][path] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            library_ms=None, shape=[n, d])
+    torch.cuda.synchronize()
+
+
 def phase_trainer(torch, np) -> dict:
     """The main path's two paths through their entry points, the launch
     counts set to 0 before each and read after it."""
@@ -515,13 +675,15 @@ def phase_trainer(torch, np) -> dict:
     pb = AdaptiveTrainer(cfg, replace(tcfg, strategy="gradmatch-pb"),
                          train, val)
 
-    counts = {}
+    counts, shapes = {}, {}
     ops.reset_launch_counts()
     rep = trainer.run(model)
     counts["gradmatch"] = ops.launch_counts()
+    shapes["gradmatch"] = ops.launch_shapes()
     ops.reset_launch_counts()
     sel_pb, pb_seconds = pb._run_selection(model, None)
     counts["gradmatch-pb"] = ops.launch_counts()
+    shapes["gradmatch-pb"] = ops.launch_shapes()
 
     emit("trainer", strategy="gradmatch", rows=train.n, budget=BUDGET,
          epochs=2, select_every=1, selection_rounds=rep.selection_rounds,
@@ -544,7 +706,8 @@ def phase_trainer(torch, np) -> dict:
           f"PB selection kept {int(sel_pb.mask.sum())} rows")
     check(bool(torch.isfinite(w).all()) and abs(float(w.sum()) - 1) < 1e-4,
           "PB selection weights are not finite or do not sum to 1")
-    return {"counts": counts, "model": model, "train": train, "val": val,
+    return {"counts": counts, "shapes": shapes, "model": model,
+            "train": train, "val": val,
             "selection_seconds": {"gradmatch": rep.selection_seconds,
                                   "gradmatch-pb": pb_seconds}}
 
@@ -731,7 +894,7 @@ def phase_craig(torch, np, train, val) -> dict:
               < 1e-4, f"{what} weights are not finite or do not sum to 1")
 
     greedy.fl_greedy = recording
-    paths = {}
+    paths, shapes = {}, {}
     try:
         # 1. craig-lazy trained end to end (per-gradient proxies: on the fly)
         trainer = AdaptiveTrainer(cfg, tcfg, train, val)
@@ -746,6 +909,7 @@ def phase_craig(torch, np, train, val) -> dict:
 
         trainer._run_selection = capture
         rep, paths["craig-lazy"] = measure(lambda: trainer.run(model))
+        shapes["craig-lazy"] = ops.launch_shapes()
         paths["craig-lazy"].update(
             selection_seconds=rep.selection_seconds,
             selection_rounds=rep.selection_rounds,
@@ -769,6 +933,7 @@ def phase_craig(torch, np, train, val) -> dict:
             gen = torch.Generator(device="cuda").manual_seed(7)
             (sel, _), paths[strategy] = measure(
                 lambda: tr._run_selection(model, gen))
+            shapes[strategy] = ops.launch_shapes()
             paths[strategy]["selection_seconds"] = paths[strategy]["seconds"]
             check_sel(sel, strategy, (K // BATCH) * BATCH
                       if strategy == "craig-pb" else K)
@@ -779,6 +944,7 @@ def phase_craig(torch, np, train, val) -> dict:
         resident, paths["craig-resident"] = measure(
             lambda: craig_lib.craig(pcg, K, method="lazy", on_the_fly=False,
                                     dist_fn=ops.sqdist, l_max=lm))
+        shapes["craig-resident"] = ops.launch_shapes()
         paths["craig-resident"]["selection_seconds"] = (
             paths["craig-resident"]["seconds"])
         check_sel(resident, "craig-resident")
@@ -844,8 +1010,271 @@ def phase_craig(torch, np, train, val) -> dict:
     finally:
         greedy.fl_greedy = fl_greedy
     return {"counts": {p: paths[p]["launches"] for p in CRAIG_PATHS},
+            "shapes": shapes,
             "selection_seconds": {p: paths[p]["selection_seconds"]
                                   for p in CRAIG_PATHS}}
+
+
+def phase_stream(torch, np, train, val) -> dict:
+    """Streaming GRAD-MATCH through its entry points at the main path's
+    data and widths, each path's launch counts read on its own, then the
+    kernels against the plain versions on whole selections, a partial
+    cache, and the row fetch's bits."""
+    import copy
+
+    from repro_torch.configs.paper import PaperHParams, mlp
+    from repro_torch.core import omp
+    from repro_torch.core import proxies as proxy_lib
+    from repro_torch.core import selection as sel_lib
+    from repro_torch.core import streaming
+    from repro_torch.data.loader import ChunkedPool
+    from repro_torch.kernels import ops, ref
+    from repro_torch.train.steps import make_proxy_fn
+    from repro_torch.train.trainer import AdaptiveTrainer, TrainerConfig
+
+    def stats_of(sel):
+        st = sel.stats
+        return dict(passes=st.passes, rounds=st.rounds,
+                    certified_rounds=st.certified_rounds,
+                    refills=st.refills, repairs=st.repairs,
+                    fetched_rows=st.fetched_rows,
+                    cache_hit_rate=st.cache_hit_rate,
+                    host_syncs_per_round=st.host_syncs / max(st.rounds, 1))
+
+    def check_sel(sel, what, size=K):
+        w = sel.weights[sel.mask]
+        check(int(sel.mask.sum()) == size,
+              f"{what} kept {int(sel.mask.sum())} rows, not {size}")
+        check(len(set(sel.indices[sel.mask].tolist())) == size,
+              f"{what} picked a row twice")
+        check(bool(torch.isfinite(w).all()) and abs(float(w.sum()) - 1)
+              < 1e-4, f"{what} weights are not finite or do not sum to 1")
+
+    def first_part(a, b):
+        """The first round whose pick differs (None: the same picks)."""
+        differ = (a != b).nonzero()
+        return int(differ[0, 0]) if len(differ) else None
+
+    # 1. gradmatch-stream trained end to end (bias proxies, chunk 1 024)
+    tcfg = TrainerConfig(strategy="gradmatch-stream", budget=BUDGET,
+                         epochs=2, batch_size=BATCH,
+                         hp=PaperHParams(select_every=1), eval_every=1)
+    trainer = AdaptiveTrainer(mlp(), tcfg, train, val)
+    model = trainer.init_model()
+    model0 = copy.deepcopy(model)
+    sels = []
+    run_selection = trainer._run_selection
+
+    def capture(*args):
+        sel, dt = run_selection(*args)
+        sels.append((sel, dt))
+        return sel, dt
+
+    trainer._run_selection = capture
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rep = trainer.run(model)
+    counts = {"gradmatch-stream": ops.launch_counts()}
+    shapes = {"gradmatch-stream": ops.launch_shapes()}
+    # The first selection against in-memory pooled OMP on the rows and the
+    # target the streaming pass saw (chunked extraction, summed chunk by
+    # chunk; a full-matrix sum may differ in its last bits).
+    proxy0 = make_proxy_fn(model0)
+    chunks = proxy_lib.proxy_chunk_stream(
+        ChunkedPool(train.x, train.y, STREAM_CHUNK).chunks, proxy0)
+    target, _ = streaming.streaming_target(chunks)
+    rows = torch.cat([c for c, _ in chunks()])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx, _, mask, err_mem = omp.omp_select(rows, target, K)
+    torch.cuda.synchronize()
+    mem_s = time.perf_counter() - t0
+    first = sels[0][0]
+    part = first_part(first.indices, idx)
+    emit("stream", path="gradmatch-stream", rows=train.n, budget=BUDGET,
+         epochs=2, select_every=1, selection_rounds=rep.selection_rounds,
+         selection_seconds=[dt for _, dt in sels],
+         in_memory_pooled_seconds=mem_s, wall_seconds=rep.wall_seconds,
+         final_acc=rep.final_acc, subset_size=rep.subset_size,
+         select_stats=[stats_of(sel) for sel, _ in sels],
+         launches=counts["gradmatch-stream"],
+         launches_per_selection={
+             name: counts["gradmatch-stream"][name] / 2
+             for name in ("corr", "bound_max", "lastlayer_grad")},
+         first_differing_round_vs_in_memory=part,
+         err_stream=float(first.err), err_in_memory=float(err_mem),
+         first_selection_per_class=torch.bincount(
+             train.y[first.indices[first.mask].long()], minlength=10
+         ).tolist())
+    check(rep.selection_rounds == 2, "expected two selection rounds")
+    check(rep.subset_size == K, f"gradmatch-stream kept {rep.subset_size}")
+    for sel, _ in sels:
+        check_sel(sel, "gradmatch-stream")
+    # Pooled selection over the bias proxies does not balance the classes
+    # as the per-class solve does: 0.219 after 2 epochs in the first run
+    # (chance is 0.1), against 0.514 per class.
+    check(np.isfinite(rep.final_acc) and rep.final_acc > 0.15,
+          f"gradmatch-stream final accuracy {rep.final_acc} is not above "
+          "0.15")
+    for name in ("corr", "bound_max", "lastlayer_grad"):
+        check(counts["gradmatch-stream"][name] > 0,
+              f"kernel {name} was not launched on the gradmatch-stream path")
+    check(part is None and torch.equal(first.mask, mask), "streaming and "
+          f"in-memory pooled OMP part at round {part}")
+
+    # 2. one pooled per-gradient selection with the kernels, with the plain
+    # versions, and with the plain versions scoring every row at the pool's
+    # shape, each beside in-memory pooled GRAD-MATCH in the same arithmetic
+    pcg, _ = make_proxy_fn(model)(train.x, train.y)
+    corr_ref = ref.corr_ref
+
+    def pool_shaped_corr(grads, residual):
+        """The plain scores of f32 rows (n, d), n <= the pool's rows, from
+        one product at the pool's shape.  The in-memory solver scores every
+        row in one (45 000, 65) product, and cuBLAS picks its order of
+        summation by the product's shape: a buffer of 768 rows, a chunk or a
+        single row scored on its own can differ from the pool's scores in
+        the last bit, and near-tied picks then part."""
+        n, d = grads.shape
+        if (grads.dtype != torch.float32 or d != pcg.shape[1]
+                or n >= pcg.shape[0]):
+            return corr_ref(grads, residual)
+        full = torch.zeros_like(pcg)
+        full[:n] = grads
+        return corr_ref(full, residual)[:n]
+
+    def timed(mode, fn, scorer=corr_ref):
+        ops.set_backend(mode)
+        ref.corr_ref = scorer
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return (out, time.perf_counter() - t0, ops.launch_counts(),
+                    ops.launch_shapes())
+        finally:
+            ops.set_backend(None)
+            ref.corr_ref = corr_ref
+
+    def stream():
+        return sel_lib.select("gradmatch-stream", None, pcg, K)
+
+    def in_memory():
+        return sel_lib.select("gradmatch", None, pcg, K, per_class=False)
+
+    runs = {"kernels": timed(None, stream),
+            "plain": timed("ref", stream),
+            "plain-pool-shape": timed("ref", stream, pool_shaped_corr)}
+    mems = {"kernels": timed(None, in_memory),
+            "plain": timed("ref", in_memory)}
+    for what, run in runs.items():
+        check_sel(run[0], f"stream-pooled {what}")
+    counts["stream-pooled"] = runs["kernels"][2]
+    shapes["stream-pooled"] = runs["kernels"][3]
+    vs_mem = {what: first_part(runs[what][0].indices,
+                               mems[mode][0].indices)
+              for what, mode in (("kernels", "kernels"), ("plain", "plain"),
+                                 ("plain-pool-shape", "plain"))}
+    kernels_vs_plain = {
+        "stream": first_part(runs["kernels"][0].indices,
+                             runs["plain"][0].indices),
+        "in_memory": first_part(mems["kernels"][0].indices,
+                                mems["plain"][0].indices)}
+    err = {what: float(run[0].err) for what, run in runs.items()}
+    err_mem = {what: float(run[0].err) for what, run in mems.items()}
+    emit("stream", path="stream-pooled", shape=list(pcg.shape), k=K,
+         seconds={what: run[1] for what, run in runs.items()},
+         in_memory_seconds={what: run[1] for what, run in mems.items()},
+         select_stats={what: stats_of(run[0]) for what, run in runs.items()},
+         launches={what: run[2] for what, run in runs.items()},
+         first_differing_round_vs_in_memory=vs_mem,
+         stats_kernels_equal_plain=(vars(runs["kernels"][0].stats)
+                                    == vars(runs["plain"][0].stats)),
+         first_differing_round_kernels_vs_plain=kernels_vs_plain,
+         err=err, err_in_memory=err_mem)
+    for name in ("corr", "bound_max"):
+        check(counts["stream-pooled"][name] > 0,
+              f"kernel {name} was not launched on the stream-pooled path")
+    # With the kernels every row scores in one fixed order whatever the
+    # call's shape, so streaming and in-memory OMP make the same picks.
+    # The plain versions score through cuBLAS, whose order of summation
+    # follows the product's shape: the plain streaming run parts from the
+    # plain in-memory one at a near tie.  Scored at the pool's shape, as the
+    # in-memory solver scores, it must make the same picks: that run holds
+    # the plain path; the plain run is reported beside it and held to a
+    # valid selection whose err is within 1% of the in-memory one.
+    for what, mode in (("kernels", "kernels"),
+                       ("plain-pool-shape", "plain")):
+        check(vs_mem[what] is None and torch.equal(
+            runs[what][0].mask, mems[mode][0].mask), f"stream-pooled {what} "
+            f"and in-memory pooled GRAD-MATCH part at round {vs_mem[what]}")
+        check(abs(err[what] - err_mem[mode]) <= 1e-4 * abs(err_mem[mode]),
+              f"stream-pooled {what} err {err[what]} vs in-memory "
+              f"{err_mem[mode]}")
+    check(np.isfinite(err["plain"]) and abs(err["plain"] - err_mem["plain"])
+          <= 1e-2 * abs(err_mem["plain"]), f"stream-pooled plain err "
+          f"{err['plain']} vs in-memory {err_mem['plain']}")
+
+    # 3. a partial cache: the trainer's first selection again (the initial
+    # model's bias proxies, chunk 1 024, the row fetch) with a cache of
+    # PARTIAL_SLOTS slots for its 44 chunks, so every loader pass evicts
+    # through the LRU and rounds certify from the cached chunks' bound and
+    # the sketch of the uncached ones.  Cut to PARTIAL_K rounds: OMP's picks
+    # are a prefix (a solve of k' rounds, k' a multiple of the 128-round
+    # block, makes the first k' picks of a longer one).
+    fetch0 = proxy_lib.proxy_row_fetch(train.x, train.y, proxy0, STREAM_CHUNK)
+    cbytes = PARTIAL_SLOTS * STREAM_CHUNK * streaming.ChunkCache(
+        0, target.shape[0]).bytes_per_row
+    partial, part_s, part_counts, _ = timed(
+        None, lambda: streaming.gradmatch_streaming(
+            chunks, PARTIAL_K, lam=tcfg.hp.lam, eps=tcfg.hp.eps,
+            buffer_size=tcfg.stream_buffer, cache_bytes=cbytes,
+            row_fetch=fetch0))
+    check_sel(partial, "partial-cache", PARTIAL_K)
+    part_at = first_part(partial.indices, first.indices[:PARTIAL_K])
+    pst = partial.stats
+    emit("stream", path="partial-cache", k=PARTIAL_K, cache_bytes=cbytes,
+         slots=PARTIAL_SLOTS, seconds=part_s, select_stats=stats_of(partial),
+         cache_hits=pst.cache_hits, cache_misses=pst.cache_misses,
+         launches=part_counts, first_differing_round_vs_trainer=part_at)
+    check(part_at is None, "the partial-cache selection and the trainer's "
+          f"first selection part at round {part_at}")
+    check(pst.passes > 1 and pst.certified_rounds > 0 and pst.cache_hits > 0
+          and pst.cache_misses > 0, "the partial cache certified no round "
+          "from a partly covered arena")
+    # Each round consults the bound for the cached chunks, certified or not.
+    check(part_counts["bound_max"] >= pst.rounds,
+          "the partial cache did not run the bound every round")
+
+    # 4. row fetch: ~300 ids across the chunks, the tail chunk included,
+    # bit-equal to the chunked extraction's rows
+    proxy_fn = make_proxy_fn(model)
+    rng = np.random.default_rng(3)
+    ids = np.concatenate([rng.choice(train.n, 290, replace=False),
+                          np.arange(train.n - 10, train.n)])
+    fetch_bits = {}
+    for pick, which in (("bias", 1), ("per_class", 0)):
+        scanned = torch.cat([c for c, _ in proxy_lib.proxy_chunk_stream(
+            ChunkedPool(train.x, train.y, STREAM_CHUNK).chunks, proxy_fn,
+            pick)()])
+        fetched = proxy_lib.proxy_row_fetch(
+            train.x, train.y, proxy_fn, STREAM_CHUNK, pick)(ids)
+        sel = torch.as_tensor(ids, device=scanned.device)
+        want = scanned[sel]
+        # the reference's fetch: the gathered rows' proxies, for the record
+        gathered = proxy_fn(train.x[sel], train.y[sel])[which]
+        fetch_bits[pick] = dict(
+            equal=bool(torch.equal(fetched, want)),
+            gather_max_abs_diff=float((gathered - want).abs().max()))
+        check(fetch_bits[pick]["equal"], f"fetched {pick} proxy rows differ "
+              "from the scanned ones")
+    emit("stream", path="row-fetch", ids=len(ids), chunk=STREAM_CHUNK,
+         **fetch_bits)
+    return {"counts": counts, "shapes": shapes,
+            "selection_seconds": {"gradmatch-stream": rep.selection_seconds,
+                                  "stream-pooled": runs["kernels"][1]}}
 
 
 def main() -> int:
@@ -867,13 +1296,17 @@ def main() -> int:
     phase_build()
     records = phase_kernels(torch, np, card)
     phase_kernels_fl(torch, np, card, records)
+    phase_kernels_stream(torch, np, card, records)
     tr = phase_trainer(torch, np)
     phase_solve(torch, np, tr["model"], tr["train"])
     phase_trace(torch, tr["model"], tr["train"])
     cr = phase_craig(torch, np, tr["train"], tr["val"])
-    counts = {**tr["counts"], **cr["counts"]}
+    st = phase_stream(torch, np, tr["train"], tr["val"])
+    counts = {**tr["counts"], **cr["counts"], **st["counts"]}
+    shapes = {**tr["shapes"], **cr["shapes"], **st["shapes"]}
     selection_seconds = {**tr["selection_seconds"],
-                         **cr["selection_seconds"]}
+                         **cr["selection_seconds"],
+                         **st["selection_seconds"]}
     kernels = []
     kernel_s = {path: 0.0 for path in counts}
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -888,16 +1321,28 @@ def main() -> int:
             check(rec is not None, f"{name} launched on {path} at a shape "
                   "the kernels phase did not measure")
             paths[path] = {"launches": c[name], **rec}
-            kernel_s[path] += c[name] * rec["ms"] / 1e3
+            for kname, n, d, _ in shapes[path]:
+                check(kname != name or name == "corr"
+                      or rec["shape"] == [n, d], f"{name} ran at ({n}, {d}) "
+                      f"on {path}, measured at {rec['shape']}")
+            if name != "corr":
+                kernel_s[path] += c[name] * rec["ms"] / 1e3
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": sum(p["launches"]
                                         for p in paths.values()),
                         **records[name][MAIN_PATH[name]], "paths": paths})
-    # Share of each path's selection seconds spent in the kernels:
-    # launches times each kernel's device time at that path's shape.
+    # Share of each path's selection seconds spent in the kernels: launches
+    # times each kernel's device time at that path's shape, and for corr,
+    # which a path calls at many shapes, the launches at each shape times
+    # the time measured at that shape.
     for path in counts:
+        corr_s, by_shape = corr_seconds(torch, shapes[path])
+        check(sum(e["launches"] for e in by_shape) == counts[path]["corr"],
+              f"{path}: corr launches by shape do not add up")
+        kernel_s[path] += corr_s
         emit("share", path=path, kernel_seconds=kernel_s[path],
+             corr_seconds=corr_s, corr_by_shape=by_shape,
              selection_seconds=selection_seconds[path],
              kernel_share=kernel_s[path] / selection_seconds[path])
     emit("done", seconds=time.perf_counter() - t_start)

@@ -13,7 +13,7 @@ normalized to sum to 1 over the valid slots.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -27,6 +27,9 @@ class SelectionResult(NamedTuple):
     weights: torch.Tensor  # (k,) f32, >= 0, sums to 1 over valid slots
     mask: torch.Tensor     # (k,) bool
     err: torch.Tensor      # () f32  final E_lambda value (diagnostic)
+    # Solver accounting: the streaming entry points attach their
+    # SelectStats; None elsewhere.
+    stats: Optional[Any] = None
 
     @property
     def size(self) -> torch.Tensor:

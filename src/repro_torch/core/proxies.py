@@ -11,13 +11,19 @@ The paper's GRAD-MATCH keeps, per sample, only the slice for its own class
 (the *per-gradient* approximation).  Both proxies come from one
 ``ops.lastlayer_grad`` call: the kernel's ``resid`` is the bias proxy, and
 ``[hgrad, resid[i, y_i]]`` the per-class proxy.
+
+``proxy_chunk_stream`` and ``proxy_row_fetch`` feed the streaming engine
+(``core/streaming.py``) proxies one chunk at a time.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+
+_PICK = {"per_class": 0, "bias": 1}
 
 
 def softmax_residual(logits: torch.Tensor, labels: torch.Tensor
@@ -56,6 +62,57 @@ def per_class_grad_proxy(hidden: torch.Tensor, logits: torch.Tensor,
     candidates share the class, so rows are comparable.
     """
     return lastlayer_proxies(hidden, logits, labels)[0]
+
+
+def proxy_chunk_stream(pool_iter, proxy_fn, pick: str = "bias"):
+    """Adapt a raw-data chunk factory into a proxy chunk factory.
+
+    ``pool_iter`` yields ``(x, y, offset)`` (``data.loader.ChunkedPool``);
+    ``proxy_fn(x, y)`` returns ``(per_class_proxy, bias_proxy)``
+    (``train.steps.make_proxy_fn``).  The factory yields ``(proxy_chunk,
+    None)``, the protocol ``streaming.omp_select_streaming`` consumes, so
+    the full ``(n, d)`` proxy matrix never exists.
+    """
+    which = _PICK[pick]
+
+    def chunks():
+        for x, y, _ in pool_iter():
+            yield proxy_fn(x, y)[which], None
+
+    return chunks
+
+
+def proxy_row_fetch(x, y, proxy_fn, chunk_size: int, pick: str = "bias"):
+    """Exact proxy rows by global id, for the streaming engine's repair
+    and refill tiers; ``chunk_size`` is the scan's.
+
+    The engine treats fetched rows as the very rows the chunked scan saw.
+    The reference gathers the ids and extracts their proxies, exact
+    because its extractor works row by row.  On the card the forward pass
+    is a cuBLAS GEMM whose algorithm (and so its order of summation) may
+    change with the row count, so a gather of a few rows can differ in the
+    last bit from the same rows extracted in a chunk.  Here each chunk that
+    holds a fetched id is re-extracted as the scan sliced it and the rows
+    are gathered from it: the same call shapes, the same bits.
+    """
+    which = _PICK[pick]
+    n = x.shape[0]
+
+    def fetch(ids):
+        ids = np.asarray(ids, np.int64)
+        out = None
+        for c in np.unique(ids // chunk_size):
+            lo = int(c) * chunk_size
+            hi = min(lo + chunk_size, n)
+            rows = proxy_fn(x[lo:hi], y[lo:hi])[which]
+            if out is None:
+                out = rows.new_empty((len(ids), rows.shape[1]))
+            at = np.flatnonzero(ids // chunk_size == c)
+            out[torch.as_tensor(at, device=rows.device)] = rows[
+                torch.as_tensor(ids[at] - lo, device=rows.device)]
+        return out
+
+    return fetch
 
 
 def per_batch(proxies: torch.Tensor, batch_size: int) -> torch.Tensor:

@@ -6,7 +6,8 @@ port has ``gradmatch`` (per-class and pooled), ``gradmatch-pb``, the CRAIG
 greedy tiers (``craig`` = dense oracle, ``craig-lazy`` = certified lazy
 greedy with identical selections, ``craig-lazy-otf`` = the same with the
 similarity rebuilt on the fly, ``craig-stochastic`` = seeded stochastic
-greedy), ``craig-pb``, ``glister``, ``random`` and ``full``; the
+greedy), ``craig-pb``, ``glister``, ``gradmatch-stream`` (the certified
+streaming OMP of ``core/streaming.py``), ``random`` and ``full``; the
 reference's other strategies raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
 
@@ -25,11 +26,12 @@ from repro_torch.core import craig as craig_lib
 from repro_torch.core import glister as glister_lib
 from repro_torch.core import gradmatch as gm_lib
 from repro_torch.core import random_sel
+from repro_torch.core import streaming as stream_lib
 from repro_torch.core.gradmatch import SelectionResult
 
-STRATEGIES = ("gradmatch", "gradmatch-pb", "craig", "craig-lazy",
-              "craig-lazy-otf", "craig-stochastic", "craig-pb", "glister",
-              "random", "full")
+STRATEGIES = ("gradmatch", "gradmatch-pb", "gradmatch-stream", "craig",
+              "craig-lazy", "craig-lazy-otf", "craig-stochastic", "craig-pb",
+              "glister", "random", "full")
 
 # CRAIG tiers of the shared greedy engine (core/greedy.py): "craig-lazy"
 # selects index-identically to "craig"; "craig-lazy-otf" is the same lazy
@@ -42,7 +44,6 @@ _CRAIG_ON_THE_FLY = frozenset({"craig-lazy-otf"})
 
 # Strategies of the JAX package that later slices port (ROADMAP.md queue 1).
 NOT_PORTED = {
-    "gradmatch-stream": "queue 1 item 6 (core/streaming.py)",
     "gradmatch-partitioned": "queue 1 item 9 (core/partition.py)",
     "gradmatch-continual": "queue 1 item 8 (continual selection)",
 }
@@ -71,6 +72,9 @@ def select(
     val_target: Optional[torch.Tensor] = None,   # (d,) validation-grad sum
     per_class: bool = True,
     omp_method: str = "incremental",   # OMP solver for gradmatch strategies
+    chunk_size: int = 2048,            # gradmatch-stream: pool chunk rows
+    stream_buffer: int = 256,          # gradmatch-stream: top-M buffer slots
+    stream_cache_bytes: int = stream_lib.DEFAULT_CACHE_BYTES,
 ) -> SelectionResult:
     """Resolve one selection round.  ``val_target`` switches isValid=True.
 
@@ -79,6 +83,13 @@ def select(
     ``expand_if_pb`` to map back to examples.  ``generator`` draws the
     ``random`` subset and the ``craig-stochastic`` samples (default there:
     seeded 0 on the proxies' device); the other strategies do not use it.
+
+    ``"gradmatch-stream"`` runs the certified streaming OMP over the
+    proxies chunked by ``chunk_size``: the subset of pooled ``"gradmatch"``
+    at ``O(chunk + stream_buffer·d + stream_cache_bytes)`` peak pool
+    memory, with the engine's ``SelectStats`` on the result.
+    ``stream_cache_bytes`` must be positive here (a cacheless solve is
+    only available on ``streaming.omp_select_streaming``).
     """
     check_strategy(strategy)
     n = proxies.shape[0]
@@ -101,6 +112,21 @@ def select(
                 method=omp_method)
         return gm_lib.gradmatch(proxies, k, target=val_target, lam=lam,
                                 eps=eps, method=omp_method)
+    if strategy == "gradmatch-stream":
+        if stream_cache_bytes <= 0:
+            # A cacheless solve re-pays a loader pass for every commit;
+            # through this in-memory path that is a typo or a unit slip.
+            raise ValueError(
+                f"stream_cache_bytes must be > 0, got "
+                f"{stream_cache_bytes}: the compressed chunk cache is "
+                "what lets gradmatch-stream commit rounds without "
+                "re-reading the pool.  Pass bytes (e.g. 1 << 24); to "
+                "deliberately run cacheless use "
+                "streaming.omp_select_streaming(cache_bytes=0) directly.")
+        return stream_lib.gradmatch_streaming_array(
+            proxies, k, target=val_target, lam=lam, eps=eps,
+            chunk_size=chunk_size, buffer_size=stream_buffer,
+            cache_bytes=stream_cache_bytes)
     if strategy == "gradmatch-pb":
         return gm_lib.gradmatch_pb(
             proxies, batch_size, max(k // batch_size, 1), lam=lam, eps=eps,

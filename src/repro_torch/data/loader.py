@@ -1,19 +1,83 @@
-"""Weighted-subset mini-batch loader (Algorithm 1 line 9 feeding), after
-``repro/data/loader.py:SubsetLoader``.
+"""Weighted-subset mini-batch loader (Algorithm 1 line 9 feeding) and the
+chunked pool view of the streaming path, after ``repro/data/loader.py``.
 
-Serves shuffled mini-batches drawn from the current selection
-``(indices, weights)`` over a device-resident dataset.  Each epoch walks one
-permutation of the subset, drawn from a seeded ``torch.Generator``; a
-mini-batch re-normalizes its weights to sum to 1, so every SGD step sees the
-same objective scale.  Batches are gathered on the device, with no host
-round trip per step.
+``SubsetLoader`` serves shuffled mini-batches drawn from the current
+selection ``(indices, weights)`` over a device-resident dataset.  Each epoch
+walks one permutation of the subset, drawn from a seeded
+``torch.Generator``; a mini-batch re-normalizes its weights to sum to 1, so
+every SGD step sees the same objective scale.  Batches are gathered on the
+device, with no host round trip per step.
+
+``ChunkedPool`` is the fixed-size, re-iterable chunk view that feeds
+``core/streaming.py``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterator
 
+import numpy as np
 import torch
+
+
+def _check_memmap(arr, name: str) -> None:
+    """Refuse a memmap whose backing file is shorter than its claimed view.
+
+    A truncated backing file (partial copy, wrong dtype or shape at open)
+    otherwise fails late, as a SIGBUS or zeros in the tail chunks of a
+    streaming pass; here it is one early, descriptive error.
+    """
+    if not isinstance(arr, np.memmap):
+        return
+    filename = getattr(arr, "filename", None)
+    if filename is None:
+        return
+    need = int(getattr(arr, "offset", 0)) + arr.nbytes
+    have = os.path.getsize(filename)
+    if have < need:
+        raise ValueError(
+            f"memmap-backed {name} is truncated: {filename!r} holds "
+            f"{have} bytes but shape {arr.shape} / dtype {arr.dtype} at "
+            f"offset {int(getattr(arr, 'offset', 0))} needs {need} — the "
+            "backing file is incomplete (partial copy?) or the "
+            "shape/dtype used to open it is wrong")
+
+
+class ChunkedPool:
+    """Fixed-size, re-iterable chunk view over a dataset.
+
+    The pool is read one ``chunk_size`` slice at a time in a deterministic
+    order, and every ``chunks()`` call restarts from offset 0: streaming
+    OMP rescans the pool when its certificate fails.  ``x``/``y`` may be
+    tensors (on any device), numpy arrays or ``np.memmap``; a slice is
+    whatever slicing gives, so an out-of-core pool is never materialized.
+    """
+
+    def __init__(self, x, y=None, chunk_size: int = 4096):
+        _check_memmap(x, "x")
+        if y is not None:
+            _check_memmap(y, "y")
+        self.x = x
+        self.y = y
+        self.chunk_size = int(chunk_size)
+
+    @property
+    def n(self) -> int:
+        return self.x.shape[0]
+
+    def num_chunks(self) -> int:
+        return -(-self.n // self.chunk_size)
+
+    def chunks(self) -> Iterator[tuple]:
+        """Yields ``(x_chunk, y_chunk, offset)``; ``y_chunk`` None if no y."""
+        for lo in range(0, self.n, self.chunk_size):
+            hi = min(lo + self.chunk_size, self.n)
+            yield (self.x[lo:hi],
+                   None if self.y is None else self.y[lo:hi], lo)
+
+    def __iter__(self) -> Iterator[tuple]:
+        return self.chunks()
 
 
 class SubsetLoader:

@@ -1,11 +1,14 @@
-"""Wrappers of the OMP scoring kernels ``corr`` and ``corr_argmax``.
+"""Wrappers of the OMP scoring kernels ``corr``, ``corr_argmax`` and the
+streaming certificate's ``bound_max``.
 
-The CUDA sources are ``csrc/corr.cu``; they replace the Pallas kernels
-``repro/kernels/corr.py:corr`` and ``:corr_argmax``.  A wrapper given CUDA
+The CUDA sources are ``csrc/corr.cu`` and ``csrc/bound_max.cu``; they
+replace the Pallas kernels ``repro/kernels/corr.py:corr``, ``:corr_argmax``
+and ``:bound_max``.  A wrapper given CUDA
 tensors checks them, launches its kernel on the current stream and raises
 if the launch failed; given CPU tensors it runs the plain version in
 ``ref.py``.  It never falls back from the card to the plain version.
-``launches`` counts kernel launches, and nothing else.
+``launches`` counts kernel launches, and nothing else; ``shapes`` counts the
+same launches of ``corr`` and ``bound_max`` by shape.
 """
 
 from __future__ import annotations
@@ -16,7 +19,17 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.args import (argmax_outputs, check_matrix,
                                       check_vector, stream)
 
-launches = {"corr": 0, "corr_argmax": 0}
+launches = {"corr": 0, "corr_argmax": 0, "bound_max": 0}
+# corr and bound_max launches by (kernel, rows, d, dtype), bumped with
+# ``launches``: one path calls corr at many shapes (a buffer, a chunk, one
+# row), each with its own time, and bound_max at its arena's.
+shapes: dict[tuple[str, int, int, str], int] = {}
+
+
+def _count(name: str, m: torch.Tensor) -> None:
+    launches[name] += 1
+    key = (name, *m.shape, str(m.dtype).removeprefix("torch."))
+    shapes[key] = shapes.get(key, 0) + 1
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -41,7 +54,7 @@ def corr(grads: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         residual.data_ptr(), out.data_ptr(), n, d, _vec_ok(grads),
         stream(grads.device))
     build.check(code, "corr")
-    launches["corr"] += 1
+    _count("corr", grads)
     return out
 
 
@@ -72,3 +85,45 @@ def corr_argmax(colcache: torch.Tensor, w: torch.Tensor, base: torch.Tensor,
     build.check(code, "corr_argmax")
     launches["corr_argmax"] += 1
     return idx, val
+
+
+def bound_max(rows: torch.Tensor, norms: torch.Tensor, errn: torch.Tensor,
+              residual: torch.Tensor, acc, thresh, mask: torch.Tensor,
+              absolute: bool = False
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused interval-bound scan of a compressed row cache; the contract is
+    ``ref.bound_max_ref``'s: (max u f32 (), its index i32 (), count i32 ()).
+
+    rows (n, d) bf16/f32, norms/errn (n,) f32, residual (d,) f32, mask (n,)
+    bool.  ``acc`` is a Python float (a tensor is read on the host);
+    ``thresh`` a float or a 0-d f32 tensor on the rows' device, which the
+    kernel reads in place, so a device threshold costs no host sync.
+    """
+    if not rows.is_cuda:
+        return ref.bound_max_ref(rows, norms, errn, residual, acc, thresh,
+                                 mask, absolute=absolute)
+    check_matrix("rows", rows, _DTYPES)
+    n, d = rows.shape
+    dev = rows.device
+    check_vector("norms", norms, n, dev, torch.float32)
+    check_vector("errn", errn, n, dev, torch.float32)
+    check_vector("residual", residual, d, dev, torch.float32)
+    check_vector("mask", mask, n, dev, torch.bool)
+    if not isinstance(thresh, torch.Tensor):
+        thresh = torch.full((), float(thresh), dtype=torch.float32,
+                            device=dev)
+    if (thresh.device != dev or thresh.dtype != torch.float32
+            or thresh.numel() != 1):
+        raise ValueError("thresh must be one float32 on the rows' device, "
+                         f"got {thresh.dtype} {tuple(thresh.shape)} on "
+                         f"{thresh.device}")
+    scratch, idx, val = argmax_outputs(dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    code = build.lib().rt_bound_max(
+        dev.index, rows.data_ptr(), _DTYPES[rows.dtype], norms.data_ptr(),
+        errn.data_ptr(), residual.data_ptr(), float(acc), thresh.data_ptr(),
+        mask.data_ptr(), n, d, int(absolute), scratch.data_ptr(),
+        idx.data_ptr(), val.data_ptr(), count.data_ptr(), stream(dev))
+    build.check(code, "bound_max")
+    _count("bound_max", rows)
+    return val, idx, count

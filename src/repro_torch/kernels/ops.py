@@ -44,10 +44,17 @@ def launch_counts() -> dict[str, int]:
     return {name: n for counts in _COUNTERS for name, n in counts.items()}
 
 
+def launch_shapes() -> dict[tuple[str, int, int, str], int]:
+    """``corr`` and ``bound_max`` launches since the last
+    ``reset_launch_counts``, by (kernel, rows, d, dtype)."""
+    return dict(corr_kernel.shapes)
+
+
 def reset_launch_counts() -> None:
     for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
+    corr_kernel.shapes.clear()
 
 
 def corr(grads: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
@@ -66,6 +73,19 @@ def corr_argmax(colcache: torch.Tensor, w: torch.Tensor, base: torch.Tensor,
                                    absolute=absolute)
     return corr_kernel.corr_argmax(colcache, w, base, mask,
                                    absolute=absolute)
+
+
+def bound_max(rows: torch.Tensor, norms: torch.Tensor, errn: torch.Tensor,
+              residual: torch.Tensor, acc, thresh, mask: torch.Tensor, *,
+              absolute: bool = False
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Streaming certificate scan over the compressed cache -> (max upper
+    bound (), its index (), offender count ())."""
+    if _FORCE == "ref":
+        return ref.bound_max_ref(rows, norms, errn, residual, acc, thresh,
+                                 mask, absolute=absolute)
+    return corr_kernel.bound_max(rows, norms, errn, residual, acc, thresh,
+                                 mask, absolute=absolute)
 
 
 def lastlayer_grad(hidden: torch.Tensor, logits: torch.Tensor,

@@ -42,6 +42,35 @@ def corr_argmax_ref(colcache: torch.Tensor, w: torch.Tensor,
     return _masked_argmax(scores, mask)
 
 
+def bound_max_ref(rows: torch.Tensor, norms: torch.Tensor,
+                  errn: torch.Tensor, residual: torch.Tensor, acc, thresh,
+                  mask: torch.Tensor, absolute: bool = False
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Interval-bound scan over a compressed row cache (the streaming
+    certificate's second rung).
+
+    rows (n, d) bf16 or f32, norms/errn (n,) f32 sidecars (exact row norm,
+    ``||g - bf16(g)||``), residual (d,), acc () accumulation-margin scalar,
+    thresh () comparison threshold, mask (n,) bool -> (max upper bound
+    f32 (), its index i32 (), count of masked rows with ``u >= thresh``
+    i32 ()), where ``u_i = s_i + (e_i + acc ||g_i||) ||r||`` and ``s_i`` is
+    the f32 dot (``abs`` when ``absolute``).  Ties go to the lowest index;
+    an all-False mask gives (-inf, 0, 0).
+    """
+    r = residual.float()
+    dev = r.device
+    acc = torch.as_tensor(acc, dtype=torch.float32, device=dev)
+    thresh = torch.as_tensor(thresh, dtype=torch.float32, device=dev)
+    s = rows.float() @ r
+    if absolute:
+        s = s.abs()
+    rnorm = torch.sqrt((r * r).sum())
+    u = s + (errn.float() + acc * norms.float()) * rnorm
+    idx, val = _masked_argmax(u, mask)
+    u_m = torch.where(mask, u, float("-inf"))
+    return val, idx, (mask & (u_m >= thresh)).sum().to(torch.int32)
+
+
 def fl_gain_argmax_ref(sim: torch.Tensor, cover: torch.Tensor,
                        mask: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -21,9 +21,11 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.paper import ClassifierConfig, PaperHParams
+from repro_torch.core import proxies as proxy_lib
 from repro_torch.core import selection as sel_lib
+from repro_torch.core import streaming as stream_lib
 from repro_torch.core.gradmatch import SelectionResult
-from repro_torch.data.loader import SubsetLoader
+from repro_torch.data.loader import ChunkedPool, SubsetLoader
 from repro_torch.data.synthetic import Dataset
 from repro_torch.device import resolve_device
 from repro_torch.models.classifier import ClassifierNet
@@ -48,6 +50,9 @@ class TrainerConfig:
     is_valid: bool = False             # match validation gradients
     per_class: bool = True
     omp_method: str = "incremental"    # OMP solver for gradmatch strategies
+    chunk_size: int = 1024             # gradmatch-stream: proxy chunk rows
+    stream_buffer: int = 256           # gradmatch-stream: top-M buffer slots
+    stream_cache_bytes: int = 256 << 20  # gradmatch-stream: chunk cache
     seed: int = 0
     checkpoint_dir: Optional[str] = None   # not ported (ROADMAP item 10)
     eval_every: int = 5
@@ -105,6 +110,23 @@ class AdaptiveTrainer:
         if tc.is_valid:
             _, vbias = proxy_fn(self.val_ds.x, self.val_ds.y)
             val_target = vbias.sum(dim=0)
+        if tc.strategy == "gradmatch-stream":
+            # Out-of-core path: bias proxies are extracted one chunk at a
+            # time through the chunked pool, so the (n, d) proxy matrix
+            # never exists.  The row fetcher re-extracts the chunks that
+            # hold the fetched ids, so the repair and refill tiers get the
+            # scan's exact rows without a loader pass.
+            x, y = self.train_ds.x, self.train_ds.y
+            pool = ChunkedPool(x, y, tc.chunk_size)
+            chunks = proxy_lib.proxy_chunk_stream(pool.chunks, proxy_fn)
+            fetch = proxy_lib.proxy_row_fetch(x, y, proxy_fn, tc.chunk_size)
+            sel = stream_lib.gradmatch_streaming(
+                chunks, k, target=val_target, lam=tc.hp.lam, eps=tc.hp.eps,
+                buffer_size=tc.stream_buffer,
+                cache_bytes=tc.stream_cache_bytes, row_fetch=fetch,
+                device=self.device)
+            self._sync()
+            return sel, time.perf_counter() - t0
         pcg, bias = proxy_fn(self.train_ds.x, self.train_ds.y)
         # PB variants, GLISTER and CRAIG on the fly use the bias-gradient
         # proxy (comparable across classes); GRAD-MATCH and the resident

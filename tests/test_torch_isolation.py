@@ -79,3 +79,24 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result():
                          cwd=ROOT)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_streaming_entry_points_refuse_the_cpu_without_being_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    import numpy as np
+
+    from repro_torch.core import streaming
+
+    g = np.ones((16, 3), np.float32)
+    chunks = streaming.array_chunks(g, 8)
+    for call in (lambda: streaming.omp_select_streaming(chunks, g.sum(0), 2),
+                 lambda: streaming.gradmatch_streaming(chunks, 2),
+                 lambda: streaming.streaming_target(chunks),
+                 lambda: streaming.gradmatch_streaming_array(g, 2),
+                 lambda: streaming.ChunkCache(1 << 10, 3)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # asked for explicitly, the CPU is fine
+    out = streaming.omp_select_streaming(chunks, g.sum(0), 2, device="cpu")
+    assert out.indices.device.type == "cpu"

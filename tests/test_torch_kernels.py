@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.corr import bound_max as pallas_bound_max  # noqa: E402
 from repro.kernels.corr import corr as pallas_corr  # noqa: E402
 from repro.kernels.corr import corr_argmax as pallas_corr_argmax  # noqa: E402
 from repro.kernels.fl_gain import (  # noqa: E402
@@ -158,16 +159,103 @@ def test_dispatch_modes_and_counts():
             idx, val = ops.corr_argmax(g, r, torch.zeros(5),
                                        torch.ones(5, dtype=torch.bool))
             assert (int(idx), float(val)) == (0, -3.0)
+            val, idx, cnt = ops.bound_max(
+                g.to(torch.bfloat16), torch.zeros(5), torch.ones(5), r, 0.0,
+                3.0, torch.ones(5, dtype=torch.bool))
+            assert float(val) == pytest.approx(3.0 + 3 ** 0.5)
+            assert (int(idx), int(cnt)) == (0, 5)
             if mode is not None:
                 assert ops.active_mode() == mode
         finally:
             ops.set_backend(None)
     assert ops.launch_counts() == {"corr": 0, "corr_argmax": 0,
-                                   "lastlayer_grad": 0, "fl_gain_argmax": 0,
+                                   "bound_max": 0, "lastlayer_grad": 0,
+                                   "fl_gain_argmax": 0,
                                    "fl_gain_argmax_otf": 0, "sqdist": 0}
+    assert ops.launch_shapes() == {}
     for mode in ("pallas", "cuda"):
         with pytest.raises(ValueError):
             ops.set_backend(mode)
+
+
+# ---------------------------------------------------------------------------
+# bound_max: the streaming certificate's interval scan
+# ---------------------------------------------------------------------------
+
+def _bound_inputs(n, d, seed, ties=False, mask_frac=0.8):
+    rng = np.random.default_rng(seed)
+    rows = rng.standard_normal((n, d)).astype(np.float32)
+    norms = np.sqrt((rows * rows).sum(1)).astype(np.float32)
+    errn = (norms * np.abs(rng.standard_normal(n)) / 700).astype(np.float32)
+    if ties:                         # every row and its sidecars twice
+        rows[1::2], norms[1::2], errn[1::2] = (rows[:-1:2], norms[:-1:2],
+                                               errn[:-1:2])
+    r = rng.standard_normal(d).astype(np.float32)
+    mask = rng.random(n) < mask_frac
+    return rows, norms, errn, r, np.float32(d * 2.0 ** -23 * 1.25), mask
+
+
+def _bound_port(rows, norms, errn, r, acc, thresh, mask, absolute):
+    return ref.bound_max_ref(
+        torch.from_numpy(rows).to(torch.bfloat16), torch.from_numpy(norms),
+        torch.from_numpy(errn), torch.from_numpy(r), float(acc), thresh,
+        torch.from_numpy(mask), absolute=absolute)
+
+
+# n not a multiple of the TPU's 128-row tile; d = 10 and 65 are the widths
+# of the streaming path's bias and per-gradient proxies.  The value is held
+# to 1e-6 of max |u| (f32 dots of bf16 rows summed in another order); the
+# index and the count exactly (the inputs leave no u within that of another
+# maximal u or of the threshold).
+@pytest.mark.parametrize("n,d", [(1, 10), (129, 10), (300, 65), (1000, 65)])
+@pytest.mark.parametrize("absolute", [False, True])
+@pytest.mark.parametrize("thresh", [float("-inf"), float("inf"), 0.5])
+def test_bound_max_plain_matches_jax(n, d, absolute, thresh):
+    rows, norms, errn, r, acc, mask = _bound_inputs(n, d, n * 7 + d)
+    got = _bound_port(rows, norms, errn, r, acc, thresh, mask, absolute)
+    bf = jnp.asarray(rows).astype(jnp.bfloat16)
+    args = (bf, jnp.asarray(norms), jnp.asarray(errn), jnp.asarray(r),
+            jnp.float32(acc), jnp.float32(thresh), jnp.asarray(mask))
+    scale = float(np.abs(np.asarray(got[0]))) + 1e-30
+    for want in (jref.bound_max_ref(*args, absolute=absolute),
+                 pallas_bound_max(*args, absolute=absolute, interpret=True)):
+        assert abs(float(got[0]) - float(want[0])) <= 1e-6 * scale
+        assert int(got[1]) == int(want[1])
+        assert int(got[2]) == int(want[2])
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    assert got[2].dtype == torch.int32
+    if thresh == float("-inf"):
+        assert int(got[2]) == int(mask.sum())
+    if thresh == float("inf"):
+        assert int(got[2]) == 0
+
+
+@pytest.mark.parametrize("absolute", [False, True])
+def test_bound_max_plain_ties_and_all_masked(absolute):
+    rows, norms, errn, r, acc, mask = _bound_inputs(258, 65, 4, ties=True)
+    full = np.ones(258, bool)
+    v, i, c = _bound_port(rows, norms, errn, r, acc, float("-inf"), full,
+                          absolute)
+    assert int(i) % 2 == 0 and int(c) == 258
+    want = jref.bound_max_ref(
+        jnp.asarray(rows).astype(jnp.bfloat16), jnp.asarray(norms),
+        jnp.asarray(errn), jnp.asarray(r), jnp.float32(acc),
+        jnp.float32(-jnp.inf), jnp.asarray(full), absolute=absolute)
+    assert int(want[1]) == int(i)
+    none = np.zeros(258, bool)
+    v, i, c = _bound_port(rows, norms, errn, r, acc, float("-inf"), none,
+                          absolute)
+    assert (float(v), int(i), int(c)) == (float("-inf"), 0, 0)
+    # the wrapper takes the plain version for CPU tensors, and f32 rows too
+    got = corr_kernel.bound_max(
+        torch.from_numpy(rows), torch.from_numpy(norms),
+        torch.from_numpy(errn), torch.from_numpy(r), float(acc),
+        torch.tensor(0.0), torch.from_numpy(mask), absolute=absolute)
+    want = jref.bound_max_ref(
+        jnp.asarray(rows), jnp.asarray(norms), jnp.asarray(errn),
+        jnp.asarray(r), jnp.float32(acc), jnp.float32(0.0),
+        jnp.asarray(mask), absolute=absolute)
+    assert int(got[1]) == int(want[1]) and int(got[2]) == int(want[2])
 
 
 # ---------------------------------------------------------------------------

@@ -133,9 +133,11 @@ def test_wrappers_count_launches_and_reject_bad_input(dev):
         sqdist_kernel.sqdist(sim, torch.ones((3, 5), device=dev))
     assert fl_kernel.launches["fl_gain_argmax"] == before_fl + 1
     before = corr_kernel.launches["corr"]
+    shaped = corr_kernel.shapes.get(("corr", 4, 3, "float32"), 0)
     g = torch.ones((4, 3), device=dev)
     corr_kernel.corr(g, torch.ones((3,), device=dev))
     assert corr_kernel.launches["corr"] == before + 1
+    assert corr_kernel.shapes[("corr", 4, 3, "float32")] == shaped + 1
     with pytest.raises(TypeError):
         corr_kernel.corr(g, torch.ones((3,), device=dev, dtype=torch.float64))
     with pytest.raises(ValueError):
@@ -143,6 +145,7 @@ def test_wrappers_count_launches_and_reject_bad_input(dev):
     with pytest.raises(ValueError):
         corr_kernel.corr(g, torch.ones((3,)))
     assert corr_kernel.launches["corr"] == before + 1
+    assert corr_kernel.shapes[("corr", 4, 3, "float32")] == shaped + 1
     # corr_argmax takes f32 only: no path scores a bf16 column cache.
     with pytest.raises(TypeError):
         corr_kernel.corr_argmax(
@@ -264,3 +267,88 @@ def test_craig_on_the_card_kernels_vs_plain(dev):
             assert counts["fl_gain_argmax_otf"] >= 1
         else:
             assert counts["sqdist"] == 1 and counts["fl_gain_argmax"] >= 1
+
+
+def _bound_case(n, d, seed, dev, dtype="bfloat16", mask_frac=0.8):
+    """bound_max inputs with rows and residual on a 1/8 grid, so every dot
+    product is exact in f32 and the kernel and the plain version differ
+    only in the rounding of the sidecar term (a few ulp of u)."""
+    rng = np.random.default_rng(seed)
+    rows = _t(np.round(rng.standard_normal((n, d)) * 8) / 8, dev).to(
+        getattr(torch, dtype))
+    r = _t((np.round(rng.standard_normal(d) * 8) / 8).astype(np.float32), dev)
+    norms = _t(np.abs(rng.standard_normal(n)).astype(np.float32) * 3, dev)
+    errn = _t(np.abs(rng.standard_normal(n)).astype(np.float32) / 512, dev)
+    mask = _t(rng.random(n) < mask_frac, dev)
+    return rows, norms, errn, r, float(d * 2.0 ** -23 * 1.25), mask
+
+
+def _check_bound(got, want, u, mask, thresh):
+    """Value to 1e-6 of max |u| (the stated tolerance), index equal unless
+    the two rows' u lie within it, count equal when no masked u lies
+    within it of ``thresh``."""
+    (gv, gi, gc), (wv, wi, wc) = got, want
+    tol = 1e-6 * float(u[mask].abs().max()) if bool(mask.any()) else 0.0
+    if not bool(mask.any()):
+        assert (float(gv), int(gi), int(gc)) == (float("-inf"), 0, 0)
+        return
+    assert abs(float(gv) - float(wv)) <= tol
+    if int(gi) != int(wi):
+        assert bool(mask[int(gi)])
+        assert abs(float(u[int(gi)]) - float(u[int(wi)])) <= tol
+    if not bool(((u - thresh).abs() <= tol)[mask].any()):
+        assert int(gc) == int(wc)
+
+
+@pytest.mark.parametrize("n,d", [(1, 10), (129, 65), (4097, 10),
+                                 (65536, 10), (65536, 65),
+                                 (88064, 10), (86016, 65)])
+@pytest.mark.parametrize("absolute", [False, True])
+def test_bound_max_kernel_matches_plain(dev, n, d, absolute):
+    rows, norms, errn, r, acc, mask = _bound_case(n, d, n + d, dev)
+    s = rows.float() @ r
+    s = s.abs() if absolute else s
+    u = s + (errn + acc * norms) * torch.sqrt((r * r).sum())
+    srt = torch.sort(u[mask]).values
+    mid = float((srt[len(srt) // 2] + srt[max(len(srt) // 2 - 1, 0)]) / 2)
+    for thresh in (float("-inf"), float("inf"), mid):
+        th = torch.full((), thresh, device=dev)
+        got = corr_kernel.bound_max(rows, norms, errn, r, acc, th, mask,
+                                    absolute=absolute)
+        want = ref.bound_max_ref(rows, norms, errn, r, acc, th, mask,
+                                 absolute=absolute)
+        torch.cuda.synchronize()
+        _check_bound(got, want, u, mask, thresh)
+
+
+def test_bound_max_kernel_f32_rows_ties_and_all_masked(dev):
+    rows, norms, errn, r, acc, mask = _bound_case(4096, 65, 9, dev,
+                                                  dtype="float32")
+    key = ("bound_max", 4096, 65, "float32")
+    tallied = corr_kernel.shapes.get(key, 0)
+    got = corr_kernel.bound_max(rows, norms, errn, r, acc, 0.0, mask)
+    want = ref.bound_max_ref(rows, norms, errn, r, acc, 0.0, mask)
+    s = rows @ r
+    u = s + (errn + acc * norms) * torch.sqrt((r * r).sum())
+    _check_bound(got, want, u, mask, 0.0)
+    # duplicated rows and sidecars: equal u, the lowest index wins
+    rows[1::2] = rows[::2]
+    norms[1::2] = norms[::2]
+    errn[1::2] = errn[::2]
+    full = torch.ones_like(mask)
+    v, i, c = corr_kernel.bound_max(rows, norms, errn, r, acc, float("-inf"),
+                                    full, absolute=True)
+    assert int(i) % 2 == 0 and int(c) == 4096
+    none = torch.zeros_like(mask)
+    v, i, c = corr_kernel.bound_max(rows, norms, errn, r, acc, float("-inf"),
+                                    none)
+    assert (float(v), int(i), int(c)) == (float("-inf"), 0, 0)
+    assert corr_kernel.shapes[key] == tallied + 3
+    before = corr_kernel.launches["bound_max"]
+    with pytest.raises(TypeError):
+        corr_kernel.bound_max(rows, norms.double(), errn, r, acc, 0.0, full)
+    with pytest.raises(ValueError):
+        corr_kernel.bound_max(rows, norms, errn, r, acc,
+                              torch.zeros((2,), device=dev), full)
+    assert corr_kernel.launches["bound_max"] == before
+    assert corr_kernel.shapes[key] == tallied + 3

@@ -43,7 +43,8 @@ def _cfg(mod, hp, **kw):
 
 
 @pytest.mark.parametrize("strategy", ["gradmatch", "gradmatch-pb",
-                                      "craig-pb", "glister"])
+                                      "gradmatch-stream", "craig-pb",
+                                      "glister"])
 def test_first_selection_round_matches_jax(numpy_data, strategy):
     (xt, yt), (xv, yv) = numpy_data
     params = jax.tree_util.tree_map(
@@ -69,6 +70,10 @@ def test_first_selection_round_matches_jax(numpy_data, strategy):
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(float(got.err), float(want.err), rtol=1e-4,
                                atol=1e-5)
+    if strategy == "gradmatch-stream":
+        want_stats = vars(want.stats)
+        assert {k: v for k, v in vars(got.stats).items()
+                if k in want_stats} == want_stats
 
 
 @pytest.mark.parametrize("strategy", ["craig-lazy", "craig-lazy-otf"])
@@ -155,6 +160,7 @@ def test_gradmatch_pb_learns_on_cpu():
     (dict(strategy="gradmatch-pb", warm_start=True, epochs=16), 0.25),
     (dict(strategy="gradmatch", is_valid=True), 0.25),
     (dict(strategy="gradmatch", per_class=False, epochs=8), 0.25),
+    (dict(strategy="gradmatch-stream", epochs=8, chunk_size=200), 0.25),
     (dict(strategy="full", early_stop_frac=0.5), 0.25),
     (dict(strategy="random", epochs=8), 0.25)])
 def test_trainer_variants_run_on_cpu(kw, min_acc):
@@ -208,12 +214,11 @@ def test_strategies_not_ported_raise():
     with pytest.raises(ValueError):
         tsel.select("nope", None, proxies, 3)
     ds = tsyn.make_classification(n=64, dim=4, num_classes=2, device="cpu")
-    for kw in ({"strategy": "gradmatch-stream"},
-               {"checkpoint_dir": "/nonexistent"}):
-        with pytest.raises(NotImplementedError):
-            ttrainer.AdaptiveTrainer(mlp(in_dim=4, num_classes=2),
-                                     ttrainer.TrainerConfig(**kw), ds, ds,
-                                     device="cpu")
+    with pytest.raises(NotImplementedError):
+        ttrainer.AdaptiveTrainer(mlp(in_dim=4, num_classes=2),
+                                 ttrainer.TrainerConfig(
+                                     checkpoint_dir="/nonexistent"), ds, ds,
+                                 device="cpu")
 
 
 @pytest.mark.parametrize("total,frac,kappa", [(60, 0.1, 0.5), (20, 0.3, 1.0),
