@@ -49,7 +49,19 @@ Phases, one JSON line each:
               trainer's first selection again, 1 024 rounds, with half the
               arena's bytes (LRU eviction, rounds certified by the cached
               chunks' bound and the sketch of the others, loader passes);
-              and fetched proxy rows bit-equal to the scanned ones.
+              and fetched proxy rows bit-equal to the scanned ones;
+  9. lm       the LM training driver (``repro_torch.launch.train.main``) at
+              its defaults on gemma-2b at full width and depth (2 506 172 416
+              parameters, bf16, 100 steps, GRAD-MATCHPB over a window of 16
+              micro-batches of 4 x 128 tokens every 20 steps): every
+              selection proxy through ``hidden_grad`` (80 launches), OMP
+              through ``corr`` and ``corr_argmax``.  Then ``hidden_grad``
+              against its plain version on a real candidate's logits,
+              targets and tied embedding (the same bits on two calls), one
+              selection with the kernels and one with the plain versions on
+              the same parameters (the same picks), the kernel's, the
+              plain version's and the cuBLAS residual product's times, and
+              a step's parts timed between syncs and traced;
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -117,13 +129,22 @@ KERNEL_SOURCES = {
                "src/repro/kernels/sqdist.py:51"),
     "bound_max": ("src/repro_torch/kernels/csrc/bound_max.cu",
                   "src/repro/kernels/corr.py:138"),
+    "hidden_grad": ("src/repro_torch/kernels/csrc/hidden_grad.cu",
+                    "src/repro/kernels/lastlayer_grad.py:143"),
 }
 # The path whose shape gives each kernel's top-level numbers.
 MAIN_PATH = {"corr": "gradmatch", "corr_argmax": "gradmatch",
              "lastlayer_grad": "gradmatch",
              "fl_gain_argmax": "craig-resident",
              "fl_gain_argmax_otf": "craig-lazy", "sqdist": "craig-resident",
-             "bound_max": "gradmatch-stream"}
+             "bound_max": "gradmatch-stream", "hidden_grad": "lm"}
+
+
+# The LM phase: the driver's defaults on gemma-2b at full size.
+LM_ARGV = ["--arch", "gemma-2b"]
+LM_PARAMS = 2_506_172_416           # gemma-2b's parameters (tied head)
+LM_HG_LIMIT = 1e-4                  # hidden_grad vs plain, of max |out|
+LM_TRACE_STEPS = 3                  # steps timed part by part
 
 
 def emit(phase: str, **kw) -> None:
@@ -1277,6 +1298,281 @@ def phase_stream(torch, np, train, val) -> dict:
                                   "stream-pooled": runs["kernels"][1]}}
 
 
+def lm_step_parts(torch, cfg, model, stream, args, proxy_fn) -> dict:
+    """Median seconds of the LM loop's parts (drawing a micro-batch, the
+    weighted loss's forward, its backward, the SGD update, one candidate's
+    selection proxy), each between two syncs, and a profiler trace of one
+    step and one proxy pass: the card's busy share of that span and the
+    device time of its busiest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import lm
+    from repro_torch.optim import sgd
+
+    opt = sgd(model.parameters(), args.lr, momentum=0.9)
+    mb = args.micro_batch
+    times = {k: [] for k in ("batch", "forward", "backward", "optimizer",
+                             "proxy")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+        return out
+
+    def one_step(i):
+        batch = timed("batch", lambda: dict(stream.batch(0, i % args.window)))
+        batch["weights"] = torch.full((mb,), 1.0 / mb, device=stream.device)
+        opt.zero_grad(set_to_none=True)
+        loss, _ = timed("forward", lambda: lm.lm_loss(cfg, model, batch))
+        timed("backward", loss.backward)
+        timed("optimizer", opt.step)
+        timed("proxy", lambda: proxy_fn(batch))
+
+    for i in range(LM_TRACE_STEPS + 1):
+        one_step(i)
+    med = {f"{k}_s": statistics.median(v[1:]) for k, v in times.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("span"):
+            one_step(0)
+    events = prof.events()
+    (lo, hi), = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == "span" and e.device_type == DeviceType.CPU]
+    # Device activity: kernels, memsets and copies.  User annotations
+    # (the span, the optimizer's step) are mirrored on the device's
+    # timeline; they are not activity.
+    device = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in events if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)
+                    and e.name != "span"
+                    and not e.name.startswith("Optimizer."))
+    busy, end, by_name = 0.0, lo, {}
+    for a, b, name in device:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            busy += b - a
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    del opt
+    return dict(steps=LM_TRACE_STEPS, **med,
+                traced_span_ms=(hi - lo) / 1e3,
+                device_busy_share=busy / (hi - lo) if device else None,
+                device_us=sum(by_name.values()),
+                hidden_grad_us=sum(us for name, us in by_name.items()
+                                   if "hidden_grad" in name),
+                top_device_us={name[:90]: us for name, us in top})
+
+
+def phase_lm(torch, np, card: dict, records: dict) -> dict:
+    """The LM training driver at its defaults on gemma-2b (full width and
+    depth), the launch counts set to 0 just before ``main`` and read just
+    after; then, on the trained parameters, ``hidden_grad`` against its
+    plain version on a real candidate, one selection with the kernels and
+    one with the plain versions, and the timings.  Adds the records of
+    ``hidden_grad`` and of ``corr`` / ``corr_argmax`` at the path's
+    shapes."""
+    import gc
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import gradmatch as gm_lib
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import corr as corr_k
+    from repro_torch.kernels import lastlayer_grad as llg_k
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.train.steps import make_lm_proxy_step
+
+    args = train.build_argparser().parse_args(LM_ARGV)
+    dev = torch.device(args.device or "cuda")
+    bw, flops = peaks(card["name"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident_before = torch.cuda.memory_allocated()
+
+    # 1. the driver, through main; the model seam holds the very model
+    # main would build from --seed, so the checks below see its weights.
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = lm.init_lm(cfg, gen, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = train.main(LM_ARGV, model=model)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"lm": ops.launch_counts()}
+    shapes = {"lm": ops.launch_shapes()}
+    peak = torch.cuda.max_memory_allocated()
+    n_sel = -(-args.steps // args.select_every)
+    emit("lm", path="lm", arch=args.arch, params=rep["params"],
+         steps=rep["steps"], micro_batch=args.micro_batch,
+         seq_len=args.seq_len, window=args.window, selections=n_sel,
+         wall_seconds=rep["wall_s"], selection_seconds=rep["selection_s"],
+         main_seconds=seconds, loss_first=rep["loss_first"],
+         loss_last=rep["loss_last"], peak_gb=peak / 1e9,
+         resident_before_gb=resident_before / 1e9, launches=counts["lm"],
+         picks=rep["selections"])
+    check(rep["params"] == LM_PARAMS, f"{args.arch} has {rep['params']} "
+          f"parameters, not {LM_PARAMS}")
+    check(all(np.isfinite(rep["losses"])), "an LM step's loss is not finite")
+    check(counts["lm"]["hidden_grad"] == args.window * n_sel,
+          f"hidden_grad launched {counts['lm']['hidden_grad']} times, not "
+          f"{args.window * n_sel}")
+    for name in ("corr", "corr_argmax"):
+        check(counts["lm"][name] > 0, f"kernel {name} was not launched on "
+              "the lm path")
+    for sel in rep["selections"]:
+        check(len(sel["indices"]) > 0 and abs(sum(sel["weights"]) - 1)
+              < 1e-4, f"selection {sel} is empty or its weights do not sum "
+              "to 1")
+
+    # 2. hidden_grad against its plain version on a real candidate: the
+    # last window's first micro-batch, its logits from the trained model.
+    stream = TokenStream(seed=args.seed, batch_per_shard=args.micro_batch,
+                         seq_len=args.seq_len, vocab=cfg.vocab_size,
+                         n_shards=args.window, device=dev)
+    last_round = (args.steps - 1) // args.select_every
+    cand = stream.batch(last_round, 0)
+    with torch.no_grad():
+        h, _, _ = lm.forward(cfg, model, cand["tokens"])
+        logits = lm._head_out(cfg, model, h)
+    z = logits.reshape(-1, logits.shape[-1])
+    y = cand["targets"].reshape(-1)
+    w = lm.head_weight(cfg, model).detach()
+    n, v = z.shape
+    dh = w.shape[0]
+    got = llg_k.hidden_grad_fused(z, y, w)
+    again = llg_k.hidden_grad_fused(z, y, w)
+    want = ref.hidden_grad_ref(z, y, w)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    same_bits = bool(torch.equal(got, again))
+    # a ragged case: rows, vocabulary and width off every tile, f32 logits,
+    # an untied (d_h, V) head, int64 labels
+    zr = torch.randn((300, 1000), device=dev) * 2
+    yr = torch.randint(0, 1000, (300,), device=dev)
+    wr = torch.randn((600, 1000), device=dev) * 0.02
+    rg, rw = llg_k.hidden_grad_fused(zr, yr, wr), ref.hidden_grad_ref(
+        zr, yr, wr)
+    ragged = float((rg - rw).abs().max()) / float(rw.abs().max())
+
+    # 3. timings at the path's shape: the kernel, the plain version, and
+    # the cuBLAS f32 product of the residual alone (materialized and W
+    # widened beforehand): the nearest library yardstick, since no single
+    # torch call computes the whole function.
+    ms = device_ms(torch, lambda: llg_k.hidden_grad_fused(z, y, w), reps=10,
+                   warmup=2)
+    plain = device_ms(torch, lambda: ref.hidden_grad_ref(z, y, w), reps=10,
+                      warmup=2)
+    resid = torch.softmax(z.float(), dim=-1)
+    resid[torch.arange(n, device=dev), y.long()] -= 1.0
+    wt32 = w.T.float().contiguous()
+    lib_ms = device_ms(torch, lambda: torch.mm(resid, wt32), reps=10,
+                       warmup=2)
+    del resid, wt32
+    nbytes = n * v * z.element_size() + v * dh * w.element_size() + (
+        4 * n * dh + y.element_size() * n)
+    by_bytes, by_ops = nbytes / bw * 1e3, 2 * n * v * dh / flops * 1e3
+    b, by = (max(by_bytes, by_ops),
+             "bytes" if by_bytes >= by_ops else "operations")
+    emit("kernels", kernel="hidden_grad", shape=[n, v, dh], dtype="bfloat16",
+         layout="embed.T (tied head)", max_abs_err=err, max_abs_out=scale,
+         rel_err=err / scale, limit=LM_HG_LIMIT, same_bits=same_bits,
+         ragged_rel_err=ragged, ms=ms, plain_ms=plain, library_ms=lib_ms,
+         bound_ms=b, bound_by=by)
+    check(err <= LM_HG_LIMIT * scale, f"hidden_grad vs plain at ({n}, {v}, "
+          f"{dh}): max err {err}, max |out| {scale}")
+    check(ragged <= LM_HG_LIMIT, f"hidden_grad vs plain at (300, 1000, "
+          f"600): relative err {ragged}")
+    check(same_bits, "hidden_grad gave other bits on a second call")
+    records["hidden_grad"]["lm"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=lib_ms, shape=[n, v, dh])
+
+    # 4. one selection with the kernels and one with the plain versions on
+    # the trained parameters: the last window's candidates.
+    proxy_fn = make_lm_proxy_step(cfg, model)
+    k_batches = max(int(args.window * args.budget), 1)
+    sels = {}
+    for mode in ("kernels", "plain"):
+        ops.set_backend("ref" if mode == "plain" else None)
+        try:
+            px = torch.stack([proxy_fn(stream.batch(last_round, s)).mean(0)
+                              for s in range(args.window)])
+            sels[mode] = (px, gm_lib.gradmatch(px, k_batches, lam=args.lam))
+        finally:
+            ops.set_backend(None)
+    (pk, sk), (pp, sp) = sels["kernels"], sels["plain"]
+    ik, ip = sk.indices[sk.mask].tolist(), sp.indices[sp.mask].tolist()
+    wk, wp = sk.weights[sk.mask], sp.weights[sp.mask]
+    proxy_err = float((pk - pp).abs().max()) / float(pp.abs().max())
+    same = ik == ip
+    emit("lm", path="lm-select", candidates=args.window, k=k_batches,
+         picks_kernels=ik, picks_plain=ip, weights_kernels=wk.tolist(),
+         weights_plain=wp.tolist(), err_kernels=float(sk.err),
+         err_plain=float(sp.err), proxy_rel_err=proxy_err)
+    check(same, f"lm selection: kernels picked {ik}, plain versions {ip}")
+    check(torch.allclose(wk, wp, rtol=1e-4, atol=1e-5),
+          f"lm selection weights {wk.tolist()} vs {wp.tolist()}")
+
+    # corr and corr_argmax at the shapes the path gave them: c0 and each
+    # new column over the (16, 2 048) proxies, the argmax over the (16, k)
+    # column cache of the wide regime.
+
+    def record(name, fn, pfn, shape, nbytes, nops, err, lib=None):
+        by_b, by_o = nbytes / bw * 1e3, nops / flops * 1e3
+        records[name]["lm"] = dict(
+            max_abs_err=err, ms=device_ms(torch, fn),
+            plain_ms=device_ms(torch, pfn),
+            library_ms=None if lib is None else device_ms(torch, lib),
+            bound_ms=max(by_b, by_o),
+            bound_by="bytes" if by_b >= by_o else "operations", shape=shape)
+        emit("kernels", kernel=name, path="lm", **records[name]["lm"])
+
+    r = pk.sum(0)
+    got_c, want_c = corr_k.corr(pk, r), ref.corr_ref(pk, r)
+    err_c = float((got_c - want_c).abs().max())
+    check(err_c <= 1e-5 * float(want_c.abs().max()), f"corr on the lm "
+          f"proxies: max err {err_c}")
+    record("corr", lambda: corr_k.corr(pk, r), lambda: ref.corr_ref(pk, r),
+           list(pk.shape), 4 * pk.numel() + 4 * pk.shape[1]
+           + 4 * pk.shape[0], 2 * pk.numel(), err_c,
+           lib=lambda: torch.mv(pk, r))
+    cc = torch.randn((args.window, k_batches), device=dev)
+    cw = torch.randn((k_batches,), device=dev)
+    base = torch.randn((args.window,), device=dev)
+    avail = torch.ones((args.window,), dtype=torch.bool, device=dev)
+    gi, gv = corr_k.corr_argmax(cc, cw, base, avail)
+    ri, rv = ref.corr_argmax_ref(cc, cw, base, avail)
+    check(int(gi) == int(ri) and abs(float(gv) - float(rv))
+          <= 1e-5 * abs(float(rv)) + 1e-6, f"corr_argmax on the lm column "
+          f"cache: ({int(gi)}, {float(gv)}) vs ({int(ri)}, {float(rv)})")
+    record("corr_argmax", lambda: corr_k.corr_argmax(cc, cw, base, avail),
+           lambda: ref.corr_argmax_ref(cc, cw, base, avail), list(cc.shape),
+           4 * cc.numel() + 4 * k_batches + 5 * args.window + 8,
+           2 * cc.numel(), abs(float(gv) - float(rv)))
+    # 5. where a step's time goes: each part of the driver's loop timed
+    # between syncs over LM_TRACE_STEPS steps after one warm-up step
+    # (medians), then one step and one candidate's proxy pass under
+    # torch.profiler: the card's busy share and its busiest kernels.
+    del z, logits, got, again, want
+    parts = lm_step_parts(torch, cfg, model, stream, args, proxy_fn)
+    emit("lm", path="lm-trace", **parts)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "shapes": shapes,
+            "selection_seconds": {"lm": rep["selection_s"]}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1302,11 +1598,15 @@ def main() -> int:
     phase_trace(torch, tr["model"], tr["train"])
     cr = phase_craig(torch, np, tr["train"], tr["val"])
     st = phase_stream(torch, np, tr["train"], tr["val"])
-    counts = {**tr["counts"], **cr["counts"], **st["counts"]}
-    shapes = {**tr["shapes"], **cr["shapes"], **st["shapes"]}
+    lm_ = phase_lm(torch, np, card, records)
+    counts = {**tr["counts"], **cr["counts"], **st["counts"],
+              **lm_["counts"]}
+    shapes = {**tr["shapes"], **cr["shapes"], **st["shapes"],
+              **lm_["shapes"]}
     selection_seconds = {**tr["selection_seconds"],
                          **cr["selection_seconds"],
-                         **st["selection_seconds"]}
+                         **st["selection_seconds"],
+                         **lm_["selection_seconds"]}
     kernels = []
     kernel_s = {path: 0.0 for path in counts}
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -12,6 +12,10 @@ The paper's GRAD-MATCH keeps, per sample, only the slice for its own class
 ``ops.lastlayer_grad`` call: the kernel's ``resid`` is the bias proxy, and
 ``[hgrad, resid[i, y_i]]`` the per-class proxy.
 
+``hidden_grad_proxy`` is the LM head's proxy, the exact head-input
+gradient from the fused ``ops.hidden_grad`` kernel; ``models/lm.py:
+selection_proxy`` pools it per sequence.
+
 ``proxy_chunk_stream`` and ``proxy_row_fetch`` feed the streaming engine
 (``core/streaming.py``) proxies one chunk at a time.
 """
@@ -62,6 +66,24 @@ def per_class_grad_proxy(hidden: torch.Tensor, logits: torch.Tensor,
     candidates share the class, so rows are comparable.
     """
     return lastlayer_proxies(hidden, logits, labels)[0]
+
+
+def hidden_grad_proxy(hidden: torch.Tensor, logits: torch.Tensor,
+                      labels: torch.Tensor, unembed: torch.Tensor
+                      ) -> torch.Tensor:
+    """dL/dh = (p - y) @ W^T: the LM-friendly proxy, dimension d_model.
+
+    Exact head-input gradient from one ``ops.hidden_grad`` call (the fused
+    kernel on the card).  logits (..., V), labels (...,), unembed (d_h, V)
+    -> (..., d_h) f32.  For LM candidates = micro-batches, call with
+    (B, T, ...) and mean over T.  ``hidden`` is unused, kept for the
+    reference's signature.
+    """
+    del hidden
+    lead = labels.shape
+    v = logits.shape[-1]
+    g = ops.hidden_grad(logits.reshape(-1, v), labels.reshape(-1), unembed)
+    return g.reshape(*lead, -1)
 
 
 def proxy_chunk_stream(pool_iter, proxy_fn, pick: str = "bias"):

@@ -115,9 +115,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_sqdist.argtypes = [i32, p, p, i32, p, p, i64, i64, i64, p, p]
     lib.rt_bound_max.argtypes = [i32, p, i32, p, p, p, ctypes.c_float, p, p,
                                  i64, i64, i32, p, p, p, p, p]
+    lib.rt_hidden_grad.argtypes = [i32, p, i32, p, i32, p, i32, i64, i64, p,
+                                   i64, i64, i64, i64, i32, p, p, p]
     for fn in (lib.rt_corr, lib.rt_corr_argmax, lib.rt_lastlayer_grad,
                lib.rt_fl_gain_argmax, lib.rt_fl_gain_argmax_otf,
-               lib.rt_sqdist, lib.rt_bound_max):
+               lib.rt_sqdist, lib.rt_bound_max, lib.rt_hidden_grad):
         fn.restype = i32
     lib.rt_error_string.argtypes = [i32]
     lib.rt_error_string.restype = ctypes.c_char_p

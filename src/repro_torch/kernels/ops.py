@@ -127,3 +127,12 @@ def sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if _FORCE == "ref":
         return ref.sqdist_ref(a, b)
     return sqdist_kernel.sqdist(a, b)
+
+
+def hidden_grad(logits: torch.Tensor, labels: torch.Tensor,
+                unembed: torch.Tensor) -> torch.Tensor:
+    """dL/dh = (softmax(Z) - onehot(Y)) @ W^T for LM heads -> (n, d_h)
+    f32; ``unembed`` is W as (d_h, V)."""
+    if _FORCE == "ref":
+        return ref.hidden_grad_ref(logits, labels, unembed)
+    return llg_kernel.hidden_grad_fused(logits, labels, unembed)

@@ -162,3 +162,22 @@ def lastlayer_grad_ref(hidden: torch.Tensor, logits: torch.Tensor,
     resid = p - onehot
     own = (resid * onehot).sum(dim=-1, keepdim=True)
     return resid, own * hidden.float()
+
+
+def hidden_grad_ref(logits: torch.Tensor, labels: torch.Tensor,
+                    unembed: torch.Tensor) -> torch.Tensor:
+    """Exact head-input gradient of an LM head: ``(softmax(logits) -
+    onehot(labels)) @ unembed.T`` in f32.
+
+    logits (n, V) f32/bf16, labels (n,) int (a label outside [0, V) gets a
+    zero one-hot row), unembed (d_h, V) -> (n, d_h) f32.  The ``(n, V)``
+    residual is materialized, as in the reference's plain version.
+    """
+    z = logits.float()
+    z = z - z.max(dim=-1, keepdim=True).values
+    e = torch.exp(z)
+    resid = e / e.sum(dim=-1, keepdim=True)
+    y = labels.long()
+    resid = resid - (y[:, None] == torch.arange(z.shape[-1], device=z.device)
+                     ).to(torch.float32)
+    return resid @ unembed.float().T

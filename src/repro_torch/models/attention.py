@@ -1,0 +1,197 @@
+"""Self-attention for training, after ``repro/models/attention.py``: GQA/MQA
+by head grouping, RoPE, sliding window, softcap, q/k head norms, and the
+blockwise (flash-style) path for long sequences.
+
+Only the train-mode forward is ported; decode, cross-attention and the KV
+caches come with the serving slice.  The math follows the reference step by
+step: scores in f32 (bf16 operands widened, as ``preferred_element_type``
+does), masked to ``MASK_VALUE``, softmax in f32, probabilities cast to
+``v``'s dtype before the PV product.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import common
+from repro_torch.models.common import apply_rope, dtype_of, softcap
+
+MASK_VALUE = -2.0e38
+_M_INIT = -1.0e30
+
+
+def init_attention(cfg, device: torch.device,
+                   generator: Optional[torch.Generator] = None) -> dict:
+    dt = dtype_of(cfg)
+    p = {
+        "wq": common.dense_param((cfg.d_model, cfg.q_dim), dt, device,
+                                 generator),
+        "wk": common.dense_param((cfg.d_model, cfg.kv_dim), dt, device,
+                                 generator),
+        "wv": common.dense_param((cfg.d_model, cfg.kv_dim), dt, device,
+                                 generator),
+        "wo": common.dense_param((cfg.q_dim, cfg.d_model), dt, device,
+                                 generator),
+    }
+    if cfg.attn_bias:
+        p["bq"] = torch.zeros((cfg.q_dim,), dtype=dt, device=device)
+        p["bk"] = torch.zeros((cfg.kv_dim,), dtype=dt, device=device)
+        p["bv"] = torch.zeros((cfg.kv_dim,), dtype=dt, device=device)
+        p["bo"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((cfg.head_dim,), dtype=torch.float32,
+                                 device=device)
+        p["k_norm"] = torch.ones((cfg.head_dim,), dtype=torch.float32,
+                                 device=device)
+    return p
+
+
+def _project_q(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    q = x @ p["wq"]
+    if cfg.attn_bias:
+        q = q + p["bq"]
+    return q.reshape(*x.shape[:-1], cfg.n_heads, cfg.head_dim)
+
+
+def _project_kv(cfg, p, x: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.attn_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    shape = (*x.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
+    return k.reshape(shape), v.reshape(shape)
+
+
+def _qk_norm(cfg, p, q: torch.Tensor, k: torch.Tensor):
+    if cfg.qk_norm:
+        q = common.rms_head_norm(q, p["q_norm"])
+        k = common.rms_head_norm(k, p["k_norm"])
+    return q, k
+
+
+def _scale(d: int) -> float:
+    """1 / sqrt(d) rounded to f32, as the reference computes it."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
+
+
+def _attend(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q (B,Sq,H,D), k/v (B,Sk,Kv,D) -> (B,Sq,H*D).  GQA via head grouping;
+    softmax in f32; optional gemma2 attention-logit softcap."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    group = h // kvh
+    qg = q.reshape(b, sq, kvh, group, d)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    logits = logits * _scale(d)
+    if cfg.attn_softcap is not None:
+        logits = softcap(logits, cfg.attn_softcap)
+    if mask is not None:
+        # (Sq, Sk) or (B, Sq, Sk) -> (B?, 1, 1, Sq, Sk)
+        mask = mask[None, None, None] if mask.dim() == 2 else mask[:, None,
+                                                                    None]
+        logits = torch.where(mask, logits, MASK_VALUE)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, sq, h * d)
+
+
+def _tile_mask(qoff, koff, tq, tk, causal, window, device):
+    if not causal and window is None:
+        return None
+    qpos = qoff + torch.arange(tq, device=device)[:, None]
+    kpos = koff + torch.arange(tk, device=device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _attend_blockwise(cfg, q, k, v, *, causal: bool,
+                      window: Optional[int]) -> torch.Tensor:
+    """Tiled attention that never materializes (Sq, Sk): q/kv tiles of the
+    config's sizes, an online softmax carrying (m, l, acc) in f32.
+
+    Tiles wholly above the diagonal or wholly outside the window are
+    skipped.  That gives the reference's numbers bit for bit: such a tile,
+    after a tile with a live score, adds exp(-1e30 - m) = 0 with a
+    rescale of exp(0) = 1; before one (the window's leading tiles), what it
+    adds is rescaled by exp(-1e30 - m) = 0 when the first live tile comes.
+    """
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    tq = min(cfg.flash_block_q, sq)
+    tk = min(cfg.flash_block_kv, sk)
+    nq, nk = sq // tq, sk // tk
+    assert nq * tq == sq and nk * tk == sk, (sq, sk, tq, tk)
+    scale = _scale(d)
+    dev = q.device
+    qr = q.reshape(b, nq, tq, kvh, g, d)
+    kr = k.reshape(b, nk, tk, kvh, d)
+    vr = v.reshape(b, nk, tk, kvh, d)
+    tiles = []
+    for qi in range(nq):
+        qoff = qi * tq
+        qt = qr[:, qi].float()
+        m = torch.full((b, kvh, g, tq), _M_INIT, device=dev)
+        l = torch.zeros((b, kvh, g, tq), device=dev)
+        acc = torch.zeros((b, kvh, g, tq, d), device=dev)
+        for ki in range(nk):
+            koff = ki * tk
+            if causal and koff > qoff + tq - 1:
+                continue            # tile strictly above the diagonal
+            if window is not None and koff + tk - 1 <= qoff - window:
+                continue            # tile strictly outside the window
+            s = torch.einsum("bqkgd,bskd->bkgqs", qt,
+                             kr[:, ki].float()) * scale
+            if cfg.attn_softcap is not None:
+                s = softcap(s, cfg.attn_softcap)
+            mask = _tile_mask(qoff, koff, tq, tk, causal, window, dev)
+            if mask is not None:
+                s = torch.where(mask, s, _M_INIT)
+            m_new = torch.maximum(m, s.amax(-1))
+            pr = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + pr.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", pr.to(v.dtype).float(),
+                vr[:, ki].float())
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]     # (b,kvh,g,tq,d)
+        tiles.append(out.permute(0, 3, 1, 2, 4).reshape(b, tq, h * d))
+    return torch.cat(tiles, dim=1).to(v.dtype)
+
+
+def self_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence self-attention (train mode).  x (B,S,d), positions
+    (B,S)."""
+    s = x.shape[1]
+    q = _project_q(cfg, p, x)
+    k, v = _project_kv(cfg, p, x)
+    q, k = _qk_norm(cfg, p, q, k)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if s >= cfg.flash_threshold:
+        out = _attend_blockwise(cfg, q, k, v, causal=cfg.causal,
+                                window=window)
+    else:
+        if not cfg.causal:
+            mask = None
+        elif window is not None:
+            mask = common.window_mask(s, s, 0, window, x.device)
+        else:
+            mask = common.causal_mask(s, s, 0, x.device)
+        out = _attend(cfg, q, k, v, mask)
+    y = out @ p["wo"]
+    if cfg.attn_bias:
+        y = y + p["bo"]
+    return y

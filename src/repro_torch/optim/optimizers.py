@@ -32,27 +32,32 @@ class SGD(torch.optim.Optimizer):
         self.step_count = 0
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, grads=None):
+        """One update from each parameter's ``.grad``, or from ``grads``
+        (a mapping from parameter to gradient, any float dtype) when given:
+        the LM step hands in gradients accumulated in f32."""
         lr_t = self.schedule(self.step_count)
         for group in self.param_groups:
             mom, wd = group["momentum"], group["weight_decay"]
             for p in group["params"]:
-                if p.grad is None:
+                g = p.grad if grads is None else grads.get(p)
+                if g is None:
                     continue
-                g = p.grad.float()
+                g = g.float()
                 if wd:
                     g = g + wd * p.float()
                 if mom:
                     state = self.state[p]
                     m = state.get("momentum")
-                    m = g.clone() if m is None else mom * m + g
-                    state["momentum"] = m
+                    if m is None:
+                        m = state["momentum"] = g.clone()
+                    else:   # momentum * m + g, in place (f32 slots)
+                        m.mul_(mom).add_(g)
                     d = g + mom * m if group["nesterov"] else m
                 else:
                     d = g
                 p.add_((-lr_t * d).to(p.dtype))
         self.step_count += 1
-
 
 def sgd(params: Iterable[torch.Tensor], lr: Schedule, momentum: float = 0.0,
         weight_decay: float = 0.0, nesterov: bool = False) -> SGD:

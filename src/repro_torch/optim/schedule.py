@@ -23,3 +23,17 @@ def cosine_annealing(lr: float, total_steps: int, final_scale: float = 0.0):
         return float(np.float32(lr) * (np.float32(final_scale)
                                        + np.float32(1.0 - final_scale) * cos))
     return f
+
+
+def cosine_with_warmup(lr: float, warmup_steps: int, total_steps: int,
+                       final_scale: float = 0.1):
+    """Linear warmup then cosine decay: the LM-pretraining default."""
+    cos = cosine_annealing(lr, max(total_steps - warmup_steps, 1),
+                           final_scale)
+
+    def f(step: int) -> float:
+        if step < warmup_steps:
+            return float(np.float32(lr) * np.float32(step)
+                         / np.float32(max(warmup_steps, 1)))
+        return cos(step - warmup_steps)
+    return f

@@ -1,9 +1,11 @@
-"""Step builders for the classifier, after ``repro/train/steps.py``.
+"""Step builders for the classifier and the LM, after
+``repro/train/steps.py``.
 
 The weighted-subset objective is a first-class input: every train step
 takes ``batch['weights']`` (the OMP output slice, summing to 1).  The loss
-goes through autograd; the proxies come from one forward pass and the fused
-``lastlayer_grad`` kernel, with no backprop through the trunk.
+goes through autograd; the proxies come from one forward pass and a fused
+kernel (``lastlayer_grad`` for a classifier, ``hidden_grad`` for an LM
+head), with no backprop through the trunk.
 """
 
 from __future__ import annotations
@@ -12,7 +14,9 @@ from typing import Callable
 
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import proxies as proxy_lib
+from repro_torch.models import lm as lm_lib
 from repro_torch.models.classifier import ClassifierNet, classifier_loss
 
 
@@ -54,5 +58,56 @@ def make_proxy_fn(model: ClassifierNet) -> Callable:
         logits, hidden = model(x)
         return proxy_lib.lastlayer_proxies(hidden.contiguous(),
                                            logits.float().contiguous(), y)
+
+    return proxy
+
+
+# ---------------------------------------------------------------------------
+# LM steps
+# ---------------------------------------------------------------------------
+
+def lm_train_step_fn(cfg: ModelConfig, model: lm_lib.LM,
+                     opt: torch.optim.Optimizer,
+                     microbatches: int = 1) -> Callable:
+    """``step(batch) -> metrics``: one weighted step of ``model``.
+
+    ``microbatches > 1`` splits the batch on the leading axis and adds the
+    micro-batches' gradients in f32, one after another, as the reference's
+    scan does; the weight slices are not renormalized (they sum to 1
+    globally), so the sum is the whole weighted batch's gradient.  The
+    metrics are the last micro-batch's, as there.
+    """
+
+    def step(batch: dict) -> dict:
+        opt.zero_grad(set_to_none=True)
+        if microbatches == 1:
+            loss, metrics = lm_lib.lm_loss(cfg, model, batch)
+            loss.backward()
+            opt.step()
+        else:
+            acc = {p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device)
+                   for p in model.parameters()}
+            parts = {k: v.chunk(microbatches, dim=0)
+                     for k, v in batch.items()}
+            for i in range(microbatches):
+                loss, metrics = lm_lib.lm_loss(
+                    cfg, model, {k: v[i] for k, v in parts.items()})
+                loss.backward()
+                for p, a in acc.items():
+                    a.add_(p.grad.float())
+                    p.grad = None
+            opt.step(grads=acc)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_lm_proxy_step(cfg: ModelConfig, model: lm_lib.LM) -> Callable:
+    """``proxy(batch) -> (B, d_model)`` per-sequence selection proxies for
+    the model's current parameters (``lm.selection_proxy``)."""
+
+    def proxy(batch: dict) -> torch.Tensor:
+        return lm_lib.selection_proxy(cfg, model, batch)
 
     return proxy

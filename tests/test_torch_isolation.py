@@ -30,7 +30,14 @@ def _imports(path):
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("src/repro_torch/train/trainer.py",
-                 "src/repro_torch/kernels/ops.py", "chip_smoke.py"):
+                 "src/repro_torch/kernels/ops.py", "chip_smoke.py",
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/models/lm.py",
+                 "src/repro_torch/models/attention.py",
+                 "src/repro_torch/models/ffn.py",
+                 "src/repro_torch/data/tokens.py",
+                 "src/repro_torch/configs/base.py",
+                 "src/repro_torch/configs/gemma_2b.py"):
         assert must in names
 
 
@@ -45,6 +52,7 @@ def test_no_jax_or_reference_imports(path):
 def test_trainer_import_loads_no_jax():
     code = ("import sys; import repro_torch.train.trainer; "
             "import repro_torch.kernels.ops; "
+            "import repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('ok')")
@@ -100,3 +108,24 @@ def test_streaming_entry_points_refuse_the_cpu_without_being_asked():
     # asked for explicitly, the CPU is fine
     out = streaming.omp_select_streaming(chunks, g.sum(0), 2, device="cpu")
     assert out.indices.device.type == "cpu"
+
+
+def test_lm_driver_refuses_the_cpu_without_being_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import TokenStream, token_batch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    for call in (lambda: train.main(["--smoke", "--steps", "1"]),
+                 lambda: lm.init_lm(get_smoke_config("gemma-2b")),
+                 lambda: TokenStream(0, 2, 8, 96),
+                 lambda: token_batch(0, 0, 0, 2, 8, 96)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # asked for explicitly, the CPU is fine
+    rep = train.main(["--smoke", "--steps", "1", "--window", "2",
+                      "--micro-batch", "1", "--seq-len", "4", "--device",
+                      "cpu"])
+    assert rep["device"] == "cpu"

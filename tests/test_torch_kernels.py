@@ -23,6 +23,9 @@ from repro.kernels.fl_gain import (  # noqa: E402
     fl_gain_argmax as pallas_fl_gain_argmax)
 from repro.kernels.fl_gain import (  # noqa: E402
     fl_gain_argmax_otf as pallas_fl_gain_argmax_otf)
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.lastlayer_grad import (  # noqa: E402
+    hidden_grad_fused as pallas_hidden_grad)
 from repro.kernels.lastlayer_grad import (  # noqa: E402
     lastlayer_grad as pallas_lastlayer_grad)
 from repro.kernels.sqdist import sqdist as pallas_sqdist  # noqa: E402
@@ -164,13 +167,18 @@ def test_dispatch_modes_and_counts():
                 3.0, torch.ones(5, dtype=torch.bool))
             assert float(val) == pytest.approx(3.0 + 3 ** 0.5)
             assert (int(idx), int(cnt)) == (0, 5)
+            head = torch.zeros((3, 4))
+            head[:, 0] = 1.0
+            hg = ops.hidden_grad(torch.zeros((5, 4)),
+                                 torch.zeros(5, dtype=torch.int32), head)
+            assert hg.tolist() == [[-0.75] * 3] * 5
             if mode is not None:
                 assert ops.active_mode() == mode
         finally:
             ops.set_backend(None)
     assert ops.launch_counts() == {"corr": 0, "corr_argmax": 0,
                                    "bound_max": 0, "lastlayer_grad": 0,
-                                   "fl_gain_argmax": 0,
+                                   "hidden_grad": 0, "fl_gain_argmax": 0,
                                    "fl_gain_argmax_otf": 0, "sqdist": 0}
     assert ops.launch_shapes() == {}
     for mode in ("pallas", "cuda"):
@@ -402,3 +410,89 @@ def test_fl_gains_cols_plain_matches_jax():
         jnp.asarray(sqn), jnp.asarray(cover), jnp.asarray(rok),
         jnp.asarray(lm), block=64)
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# hidden_grad: (softmax(Z) - onehot(Y)) @ W^T for LM heads
+# ---------------------------------------------------------------------------
+
+_HG_JAX: dict = {}
+
+
+def _hg_inputs(n, v, dh):
+    rng = np.random.default_rng(n * 10_007 + v * 31 + dh)
+    z = (2 * rng.standard_normal((n, v))).astype(np.float32)
+    y = rng.integers(0, v, n)
+    w = (rng.standard_normal((dh, v)) / np.sqrt(v)).astype(np.float32)
+    return z, y, w
+
+
+def _hg_jax(n, v, dh):
+    """JAX's ``ops.hidden_grad`` (ref mode, as on the CPU) and the Pallas
+    kernel under the interpreter, once per shape: both label dtypes compare
+    against them (JAX takes int64 labels as int32 without x64)."""
+    if (n, v, dh) not in _HG_JAX:
+        z, y, w = (jnp.asarray(a) for a in _hg_inputs(n, v, dh))
+        _HG_JAX[n, v, dh] = (_np(jops.hidden_grad(z, y, w)),
+                             _np(pallas_hidden_grad(z, y, w, interpret=True)))
+    return _HG_JAX[n, v, dh]
+
+
+# The grid of tests/test_kernels.py's hidden_grad_fused test: n = 1 and
+# ragged against the TPU's 128-row tile, V ragged against its 512-wide
+# chunk, d_h against its 512-wide hidden chunk; rtol/atol 2e-4 as there.
+@pytest.mark.parametrize("n", [1, 60, 128])
+@pytest.mark.parametrize("v", [16, 100, 513, 1024])
+@pytest.mark.parametrize("dh", [32, 512, 600])
+@pytest.mark.parametrize("label_dtype", [np.int32, np.int64])
+def test_hidden_grad_plain_matches_jax(n, v, dh, label_dtype):
+    z, y, w = _hg_inputs(n, v, dh)
+    tz, ty, tw = (torch.from_numpy(z), torch.from_numpy(y.astype(label_dtype)),
+                  torch.from_numpy(w))
+    got = ref.hidden_grad_ref(tz, ty, tw)
+    assert got.dtype == torch.float32 and got.shape == (n, dh)
+    for want in _hg_jax(n, v, dh):
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    # The wrapper and the dispatch take the plain version for CPU tensors,
+    # W contiguous or as the transpose of a contiguous (V, d_h) matrix (the
+    # CPU product then sums in another order).
+    for out in (llg_kernel.hidden_grad_fused(tz, ty, tw),
+                ops.hidden_grad(tz, ty, tw)):
+        np.testing.assert_array_equal(out.numpy(), got.numpy())
+    wt = torch.from_numpy(np.ascontiguousarray(w.T)).T
+    np.testing.assert_allclose(ops.hidden_grad(tz, ty, wt).numpy(),
+                               got.numpy(), rtol=1e-5, atol=1e-6)
+
+
+# bf16 logits and head, as on the LM path: both packages widen the bf16
+# values to f32 and compute in f32, so they are held to 1e-5 of max |out|
+# (f32 sums of the same terms in another order).
+@pytest.mark.parametrize("n,v,dh", [(32, 640, 128), (60, 513, 600)])
+def test_hidden_grad_plain_matches_jax_bf16(n, v, dh):
+    z, y, w = _hg_inputs(n, v, dh)
+    jz = jnp.asarray(z).astype(jnp.bfloat16)
+    jw = (jnp.asarray(w) * 8).astype(jnp.bfloat16)
+    tz = torch.from_numpy(z).to(torch.bfloat16)
+    tw = (torch.from_numpy(w) * 8).to(torch.bfloat16)
+    assert np.array_equal(_np(jz.astype(jnp.float32)), tz.float().numpy())
+    got = ref.hidden_grad_ref(tz, torch.from_numpy(y), tw).numpy()
+    for want in (_np(jops.hidden_grad(jz, jnp.asarray(y), jw)),
+                 _np(pallas_hidden_grad(jz, jnp.asarray(y), jw,
+                                        interpret=True))):
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_hidden_grad_plain_out_of_range_labels_and_rows_sum():
+    """A label outside [0, V) gets a zero one-hot row (jax.nn.one_hot's
+    rule); with W = 1 every row of the residual sums to 0 otherwise."""
+    rng = np.random.default_rng(5)
+    z = rng.standard_normal((4, 9)).astype(np.float32)
+    y = np.array([0, 8, -1, 9])
+    w = np.ones((2, 9), np.float32)
+    got = ref.hidden_grad_ref(torch.from_numpy(z), torch.from_numpy(y),
+                              torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(got[:2], 0.0, atol=1e-6)
+    np.testing.assert_allclose(got[2:], 1.0, rtol=1e-6)
+    want = _np(jops.hidden_grad(jnp.asarray(z), jnp.asarray(y),
+                                jnp.asarray(w)))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)

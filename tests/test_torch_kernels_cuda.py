@@ -352,3 +352,93 @@ def test_bound_max_kernel_f32_rows_ties_and_all_masked(dev):
                               torch.zeros((2,), device=dev), full)
     assert corr_kernel.launches["bound_max"] == before
     assert corr_kernel.shapes[key] == tallied + 3
+
+
+# ---------------------------------------------------------------------------
+# hidden_grad: (softmax(Z) - onehot(Y)) @ W^T for LM heads
+# ---------------------------------------------------------------------------
+
+def _hg_case(dev, n, v, dh, zdt, wdt, tied, label_dtype="int64", seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed + n + v + dh)
+    z = (2 * torch.randn((n, v), generator=gen, device=dev)).to(zdt)
+    y = torch.randint(0, v, (n,), generator=gen, device=dev).to(
+        getattr(torch, label_dtype))
+    if tied:    # W = embed.T, embed (V, d_h) contiguous: the tied head
+        w = (0.02 * torch.randn((v, dh), generator=gen, device=dev)).to(wdt).T
+    else:
+        w = (0.02 * torch.randn((dh, v), generator=gen, device=dev)).to(wdt)
+    return z, y, w
+
+
+def _hg_check(z, y, w):
+    got = llg_kernel.hidden_grad_fused(z, y, w)
+    want = ref.hidden_grad_ref(z, y, w)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    # relative to max |out| (f32 sums of the same terms in two orders)
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 60, 128, 300])
+@pytest.mark.parametrize("v", [16, 100, 513, 1024])
+@pytest.mark.parametrize("dh", [32, 512, 600])
+def test_hidden_grad_kernel_matches_plain(dev, n, v, dh):
+    for zdt, wdt, tied, ldt in ((torch.float32, torch.float32, False,
+                                 "int32"),
+                                (torch.bfloat16, torch.bfloat16, True,
+                                 "int64"),
+                                (torch.bfloat16, torch.float32, False,
+                                 "int64"),
+                                (torch.float32, torch.bfloat16, True,
+                                 "int32")):
+        _hg_check(*_hg_case(dev, n, v, dh, zdt, wdt, tied, ldt))
+
+
+# Long vocabularies over few output tiles: the kernel cuts V into slices
+# summed separately and added in slice order (5, 8 and 8 slices here).
+@pytest.mark.parametrize("n,v,dh", [(1, 20000, 64), (60, 33333, 100),
+                                    (300, 70001, 600)])
+def test_hidden_grad_kernel_with_vocabulary_slices(dev, n, v, dh):
+    splits, _ = llg_kernel._vocab_split(n, v, dh, dev)
+    assert splits > 1
+    for zdt, tied in ((torch.float32, False), (torch.bfloat16, True)):
+        z, y, w = _hg_case(dev, n, v, dh, zdt, zdt, tied)
+        got = _hg_check(z, y, w)
+        assert torch.equal(got, llg_kernel.hidden_grad_fused(z, y, w))
+
+
+def test_hidden_grad_kernel_at_the_lm_path_shape_and_same_bits(dev):
+    """(512, 256 000, 2 048) bf16 logits and a tied bf16 head, as the
+    gemma-2b selection proxy gives it; two calls give the same bits."""
+    z, y, w = _hg_case(dev, 512, 256_000, 2048, torch.bfloat16,
+                       torch.bfloat16, True)
+    first = _hg_check(z, y, w)
+    again = llg_kernel.hidden_grad_fused(z, y, w)
+    assert torch.equal(first, again)
+
+
+def test_hidden_grad_counts_launches_and_rejects_bad_input(dev):
+    z, y, w = _hg_case(dev, 8, 40, 16, torch.float32, torch.float32, False)
+    before = llg_kernel.launches["hidden_grad"]
+    llg_kernel.hidden_grad_fused(z, y, w)
+    assert llg_kernel.launches["hidden_grad"] == before + 1
+    # n = 0: an empty result and no launch
+    out = llg_kernel.hidden_grad_fused(z[:0], y[:0], w)
+    assert out.shape == (0, 16)
+    bad = [
+        (TypeError, (z.double(), y, w)),
+        (TypeError, (z, y.float(), w)),
+        (TypeError, (z, y, w.half())),
+        (ValueError, (z.t().contiguous().t(), y, w)),      # strided logits
+        (ValueError, (z, y, w[:, :20])),                   # width mismatch
+        (ValueError, (z, y, torch.zeros((32, 80), device=dev)[::2, ::2])),
+        (ValueError, (z, y[:4], w)),
+        (ValueError, (z, y, w.cpu())),
+        (ValueError, (z, y.cpu(), w)),
+    ]
+    for exc, args in bad:
+        with pytest.raises(exc):
+            llg_kernel.hidden_grad_fused(*args)
+    assert llg_kernel.launches["hidden_grad"] == before + 1
