@@ -54,14 +54,16 @@ Phases, one JSON line each:
               its defaults on gemma-2b at full width and depth (2 506 172 416
               parameters, bf16, 100 steps, GRAD-MATCHPB over a window of 16
               micro-batches of 4 x 128 tokens every 20 steps): every
-              selection proxy through ``hidden_grad`` (80 launches), OMP
-              through ``corr`` and ``corr_argmax``.  Then ``hidden_grad``
-              against its plain version on a real candidate's logits,
-              targets and tied embedding (the same bits on two calls), one
-              selection with the kernels and one with the plain versions on
-              the same parameters (the same picks), the kernel's, the
-              plain version's and the cuBLAS residual product's times, and
-              a step's parts timed between syncs and traced;
+              selection proxy through the tensor-core ``hidden_grad_tc``
+              (80 launches, none of the FFMA ``hidden_grad``), OMP through
+              ``corr`` and ``corr_argmax``.  Then both head kernels against
+              the plain version on a real candidate's logits, targets and
+              tied embedding (the same bits on two calls) and on ragged
+              f32 and bf16 heads, one selection with the kernels and one
+              with the plain versions on the same parameters (the same
+              picks), the kernels', the plain version's and two cuBLAS
+              yardsticks' times, and a step's parts timed between syncs
+              and traced;
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -73,8 +75,9 @@ events between calls queued behind a sleep kernel, so the host's launch
 cost is not in it (the L2 cache stays warm, as in the OMP round loop that
 re-reads the same pool).  ``bound_ms`` is the larger of the bytes the call
 must move (each input read once, each output written once) over the card's
-published memory bandwidth and its f32 operations over the card's
-published f32 rate outside the tensor cores.
+published memory bandwidth and its operations over the card's published
+rate for their type: f32 outside the tensor cores, and for
+``hidden_grad_tc`` its two bf16 passes at the dense bf16 tensor-core rate.
 """
 
 from __future__ import annotations
@@ -94,6 +97,10 @@ SRC = ROOT / "src"
 # outside the tensor cores.
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
          "H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
+# Published dense bf16 tensor-core FLOP/s (the data sheets' sparse rates
+# halved).
+BF16_PEAKS = {"H100 PCIe": 756e12, "H100 NVL": 835e12, "H100": 989e12,
+              "H200": 989e12}
 
 # The main path's size: make_classification(n=50 000) split 90/10 gives the
 # 45 000 training rows of CIFAR-10's train set; budget 0.1 selects 4 500.
@@ -131,13 +138,16 @@ KERNEL_SOURCES = {
                   "src/repro/kernels/corr.py:138"),
     "hidden_grad": ("src/repro_torch/kernels/csrc/hidden_grad.cu",
                     "src/repro/kernels/lastlayer_grad.py:143"),
+    "hidden_grad_tc": ("src/repro_torch/kernels/csrc/hidden_grad_tc.cu",
+                       "src/repro/kernels/lastlayer_grad.py:143"),
 }
 # The path whose shape gives each kernel's top-level numbers.
 MAIN_PATH = {"corr": "gradmatch", "corr_argmax": "gradmatch",
              "lastlayer_grad": "gradmatch",
              "fl_gain_argmax": "craig-resident",
              "fl_gain_argmax_otf": "craig-lazy", "sqdist": "craig-resident",
-             "bound_max": "gradmatch-stream", "hidden_grad": "lm"}
+             "bound_max": "gradmatch-stream", "hidden_grad": "lm",
+             "hidden_grad_tc": "lm"}
 
 
 # The LM phase: the driver's defaults on gemma-2b at full size.
@@ -161,6 +171,13 @@ def peaks(name: str) -> tuple[float, float]:
         if key in name:
             return PEAKS[key]
     raise RuntimeError(f"no published peaks for {name!r}")
+
+
+def bf16_peak(name: str) -> float:
+    for key in ("H100 PCIe", "H100 NVL", "H200", "H100"):
+        if key in name:
+            return BF16_PEAKS[key]
+    raise RuntimeError(f"no published bf16 peak for {name!r}")
 
 
 def device_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
@@ -210,14 +227,28 @@ def phase_device(torch) -> dict:
     return {"name": name, "smi": smi}
 
 
+def ptxas_report(log: str, kernel: str) -> dict:
+    """``ptxas -v``'s lines for each instantiation of ``kernel`` in the
+    build log: registers, stack, spills."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+        elif name and ("spill" in line or "Used" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     path = build.build()
     build.lib()
+    log = (build.BUILD_DIR / "build.log").read_text()
     emit("build", library=str(path.relative_to(ROOT)),
          nvcc_seconds=build.build_seconds,
-         load_seconds=time.perf_counter() - t0)
+         load_seconds=time.perf_counter() - t0,
+         ptxas_hidden_grad_tc=ptxas_report(log, "hidden_grad_tc_kernel"))
 
 
 def phase_kernels(torch, np, card: dict) -> dict:
@@ -1371,11 +1402,12 @@ def lm_step_parts(torch, cfg, model, stream, args, proxy_fn) -> dict:
 def phase_lm(torch, np, card: dict, records: dict) -> dict:
     """The LM training driver at its defaults on gemma-2b (full width and
     depth), the launch counts set to 0 just before ``main`` and read just
-    after; then, on the trained parameters, ``hidden_grad`` against its
+    after; then, on the trained parameters, the head kernels against the
     plain version on a real candidate, one selection with the kernels and
     one with the plain versions, and the timings.  Adds the records of
-    ``hidden_grad`` and of ``corr`` / ``corr_argmax`` at the path's
-    shapes."""
+    ``hidden_grad_tc``, ``hidden_grad`` (the FFMA kernel at the path's
+    shape, which the path no longer launches) and of ``corr`` /
+    ``corr_argmax`` at the path's shapes."""
     import gc
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -1422,9 +1454,11 @@ def phase_lm(torch, np, card: dict, records: dict) -> dict:
     check(rep["params"] == LM_PARAMS, f"{args.arch} has {rep['params']} "
           f"parameters, not {LM_PARAMS}")
     check(all(np.isfinite(rep["losses"])), "an LM step's loss is not finite")
-    check(counts["lm"]["hidden_grad"] == args.window * n_sel,
-          f"hidden_grad launched {counts['lm']['hidden_grad']} times, not "
-          f"{args.window * n_sel}")
+    check(counts["lm"]["hidden_grad_tc"] == args.window * n_sel,
+          f"hidden_grad_tc launched {counts['lm']['hidden_grad_tc']} times, "
+          f"not {args.window * n_sel}")
+    check(counts["lm"]["hidden_grad"] == 0, f"the FFMA hidden_grad launched "
+          f"{counts['lm']['hidden_grad']} times on the lm path")
     for name in ("corr", "corr_argmax"):
         check(counts["lm"][name] > 0, f"kernel {name} was not launched on "
               "the lm path")
@@ -1435,6 +1469,8 @@ def phase_lm(torch, np, card: dict, records: dict) -> dict:
 
     # 2. hidden_grad against its plain version on a real candidate: the
     # last window's first micro-batch, its logits from the trained model.
+    # The path's call goes to the tensor-core kernel; the FFMA kernel's own
+    # entry is held to the same limit on the same inputs.
     stream = TokenStream(seed=args.seed, batch_per_shard=args.micro_batch,
                          seq_len=args.seq_len, vocab=cfg.vocab_size,
                          n_shards=args.window, device=dev)
@@ -1448,28 +1484,51 @@ def phase_lm(torch, np, card: dict, records: dict) -> dict:
     w = lm.head_weight(cfg, model).detach()
     n, v = z.shape
     dh = w.shape[0]
+    check(llg_k.takes_tensor_cores(z.dtype, w.dtype, n, v, dh, True,
+                                   z.data_ptr(), w.data_ptr()),
+          "the lm path's hidden_grad call is not routed to the tensor cores")
     got = llg_k.hidden_grad_fused(z, y, w)
     again = llg_k.hidden_grad_fused(z, y, w)
     want = ref.hidden_grad_ref(z, y, w)
+    ffma = llg_k.hidden_grad_ffma(z, y, w)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
+    err_ffma = float((ffma - want).abs().max())
     scale = float(want.abs().max())
     same_bits = bool(torch.equal(got, again))
-    # a ragged case: rows, vocabulary and width off every tile, f32 logits,
-    # an untied (d_h, V) head, int64 labels
-    zr = torch.randn((300, 1000), device=dev) * 2
-    yr = torch.randint(0, 1000, (300,), device=dev)
-    wr = torch.randn((600, 1000), device=dev) * 0.02
-    rg, rw = llg_k.hidden_grad_fused(zr, yr, wr), ref.hidden_grad_ref(
-        zr, yr, wr)
-    ragged = float((rg - rw).abs().max()) / float(rw.abs().max())
+    # ragged cases: rows, vocabulary and width off every tile and stage;
+    # f32 logits, an untied f32 head, int64 labels (the FFMA kernel), and a
+    # bf16 head in each layout (the tensor-core kernel)
+    ragged = {}
+    for key, zdt, wdt, tied, ldt, kernel in (
+            ("f32_untied", torch.float32, torch.float32, False, torch.int64,
+             "hidden_grad"),
+            ("bf16_tied", torch.bfloat16, torch.bfloat16, True, torch.int64,
+             "hidden_grad_tc"),
+            ("bf16_untied", torch.float32, torch.bfloat16, False,
+             torch.int32, "hidden_grad_tc")):
+        zr = (torch.randn((300, 1000), device=dev) * 2).to(zdt)
+        yr = torch.randint(0, 1000, (300,), device=dev, dtype=ldt)
+        wr = torch.randn((1000, 600) if tied else (600, 1000),
+                         device=dev) * 0.02
+        wr = (wr.T if tied else wr).to(wdt)
+        before = dict(llg_k.launches)
+        rg, rw = llg_k.hidden_grad_fused(zr, yr, wr), ref.hidden_grad_ref(
+            zr, yr, wr)
+        check(llg_k.launches[kernel] == before[kernel] + 1,
+              f"the ragged {key} case did not go to {kernel}")
+        ragged[key] = float((rg - rw).abs().max()) / float(rw.abs().max())
 
-    # 3. timings at the path's shape: the kernel, the plain version, and
-    # the cuBLAS f32 product of the residual alone (materialized and W
-    # widened beforehand): the nearest library yardstick, since no single
-    # torch call computes the whole function.
+    # 3. timings at the path's shape: the tensor-core kernel, the FFMA
+    # kernel (kept for the inputs TMA cannot take), the plain version, and
+    # two library yardsticks the port never calls, since no single torch
+    # call computes the whole function: cuBLAS's f32 product of the
+    # residual alone (materialized, W widened beforehand), and its bf16
+    # product of the residual's hi half (one pass, which misses the limit).
     ms = device_ms(torch, lambda: llg_k.hidden_grad_fused(z, y, w), reps=10,
                    warmup=2)
+    ms_ffma = device_ms(torch, lambda: llg_k.hidden_grad_ffma(z, y, w),
+                        reps=10, warmup=2)
     plain = device_ms(torch, lambda: ref.hidden_grad_ref(z, y, w), reps=10,
                       warmup=2)
     resid = torch.softmax(z.float(), dim=-1)
@@ -1477,25 +1536,45 @@ def phase_lm(torch, np, card: dict, records: dict) -> dict:
     wt32 = w.T.float().contiguous()
     lib_ms = device_ms(torch, lambda: torch.mm(resid, wt32), reps=10,
                        warmup=2)
-    del resid, wt32
+    hi = resid.to(torch.bfloat16)
+    embed = w.T                     # (V, d_h), contiguous: no copy
+    lib_bf16_ms = device_ms(torch, lambda: torch.mm(hi, embed), reps=10,
+                            warmup=2)
+    del resid, wt32, hi
     nbytes = n * v * z.element_size() + v * dh * w.element_size() + (
         4 * n * dh + y.element_size() * n)
-    by_bytes, by_ops = nbytes / bw * 1e3, 2 * n * v * dh / flops * 1e3
-    b, by = (max(by_bytes, by_ops),
-             "bytes" if by_bytes >= by_ops else "operations")
-    emit("kernels", kernel="hidden_grad", shape=[n, v, dh], dtype="bfloat16",
-         layout="embed.T (tied head)", max_abs_err=err, max_abs_out=scale,
-         rel_err=err / scale, limit=LM_HG_LIMIT, same_bits=same_bits,
-         ragged_rel_err=ragged, ms=ms, plain_ms=plain, library_ms=lib_ms,
-         bound_ms=b, bound_by=by)
+    by_bytes = nbytes / bw * 1e3
+    # f32 operations on the CUDA cores (the FFMA kernel's work), and the
+    # tensor-core kernel's two bf16 passes at the bf16 dense rate
+    bound_f32 = max(by_bytes, 2 * n * v * dh / flops * 1e3)
+    bound_tc = max(by_bytes, 2 * 2 * n * v * dh / bf16_peak(card["name"])
+                   * 1e3)
+    by = "bytes" if by_bytes >= bound_tc else "operations"
+    by_f32 = "bytes" if by_bytes >= bound_f32 else "operations"
+    emit("kernels", kernel="hidden_grad_tc", shape=[n, v, dh],
+         dtype="bfloat16", layout="embed.T (tied head)", max_abs_err=err,
+         max_abs_out=scale, rel_err=err / scale, limit=LM_HG_LIMIT,
+         same_bits=same_bits, ragged_rel_err=ragged, ms=ms,
+         ms_ffma=ms_ffma, rel_err_ffma=err_ffma / scale, plain_ms=plain,
+         library_ms=lib_ms, library_bf16_hi_ms=lib_bf16_ms,
+         bound_ms=bound_tc, bound_by=by, bound_f32_ms=bound_f32)
     check(err <= LM_HG_LIMIT * scale, f"hidden_grad vs plain at ({n}, {v}, "
           f"{dh}): max err {err}, max |out| {scale}")
-    check(ragged <= LM_HG_LIMIT, f"hidden_grad vs plain at (300, 1000, "
-          f"600): relative err {ragged}")
+    check(err_ffma <= LM_HG_LIMIT * scale, f"the FFMA hidden_grad vs plain "
+          f"at ({n}, {v}, {dh}): max err {err_ffma}, max |out| {scale}")
+    for key, rel in ragged.items():
+        check(rel <= LM_HG_LIMIT, f"hidden_grad vs plain at (300, 1000, "
+              f"600), {key}: relative err {rel}")
     check(same_bits, "hidden_grad gave other bits on a second call")
+    records["hidden_grad_tc"]["lm"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_tc,
+        bound_by=by, library_ms=lib_ms, shape=[n, v, dh],
+        bound_f32_ms=bound_f32, library_bf16_hi_ms=lib_bf16_ms)
     records["hidden_grad"]["lm"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=lib_ms, shape=[n, v, dh])
+        max_abs_err=err_ffma, ms=ms_ffma, plain_ms=plain,
+        bound_ms=bound_f32, bound_by=by_f32, library_ms=lib_ms,
+        shape=[n, v, dh], bound_tc_ms=bound_tc,
+        library_bf16_hi_ms=lib_bf16_ms)
 
     # 4. one selection with the kernels and one with the plain versions on
     # the trained parameters: the last window's candidates.
@@ -1563,7 +1642,7 @@ def phase_lm(torch, np, card: dict, records: dict) -> dict:
     # between syncs over LM_TRACE_STEPS steps after one warm-up step
     # (medians), then one step and one candidate's proxy pass under
     # torch.profiler: the card's busy share and its busiest kernels.
-    del z, logits, got, again, want
+    del z, logits, got, again, want, ffma
     parts = lm_step_parts(torch, cfg, model, stream, args, proxy_fn)
     emit("lm", path="lm-trace", **parts)
     del model

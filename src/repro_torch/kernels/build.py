@@ -117,9 +117,12 @@ def _declare(lib: ctypes.CDLL) -> None:
                                  i64, i64, i32, p, p, p, p, p]
     lib.rt_hidden_grad.argtypes = [i32, p, i32, p, i32, p, i32, i64, i64, p,
                                    i64, i64, i64, i64, i32, p, p, p]
+    lib.rt_hidden_grad_tc.argtypes = [i32, p, i32, p, i32, p, i32, p, i64,
+                                      i64, i64, i64, i32, p, p, p]
     for fn in (lib.rt_corr, lib.rt_corr_argmax, lib.rt_lastlayer_grad,
                lib.rt_fl_gain_argmax, lib.rt_fl_gain_argmax_otf,
-               lib.rt_sqdist, lib.rt_bound_max, lib.rt_hidden_grad):
+               lib.rt_sqdist, lib.rt_bound_max, lib.rt_hidden_grad,
+               lib.rt_hidden_grad_tc):
         fn.restype = i32
     lib.rt_error_string.argtypes = [i32]
     lib.rt_error_string.restype = ctypes.c_char_p

@@ -4,7 +4,9 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/lastlayer_grad.py:
 // hidden_grad_fused, the two-phase flash-style head gradient of an LM
-// candidate pool.
+// candidate pool, for the inputs the tensor-core kernel (hidden_grad_tc.cu)
+// does not take: an f32 head, or rows TMA cannot address (the wrapper's
+// routing rule).
 //
 // What bounds it on an H100: 2 n V d_h FLOPs against one read of Z and W
 // and one write of the output.  On the LM path (n = 512 tokens, V = 256 000,
@@ -13,9 +15,10 @@
 // rate bounds it.
 //
 // Design: two passes, both f32.
-//   1. hidden_grad_stats_kernel: one block of 256 threads per row walks V
-//      with an online softmax (running max and denominator), then folds
-//      its threads' pairs in a fixed tree: (m_i, l_i) per row.
+//   1. hidden_grad_stats_kernel (hidden_grad.cuh): one block of 256
+//      threads per row walks V with an online softmax (running max and
+//      denominator), then folds its threads' pairs in a fixed tree:
+//      (m_i, l_i) per row.
 //   2. hidden_grad_kernel: one block per (128-row, 64-column) output tile
 //      and slice of V walks its slice in chunks of 32.  Its prologue forms
 //      p - onehot = exp(z - m_i) * (1 / l_i) - [v == y_i] from the Z chunk
@@ -28,8 +31,8 @@
 //   3. When the output tiles alone would leave SMs idle (the LM path has
 //      128 of them for 132 SMs that hold two blocks each), V is split into
 //      `splits` slices, one block per tile and slice, each writing its own
-//      partial tile; hidden_grad_reduce_kernel adds the partials in slice
-//      order.
+//      partial tile; hidden_grad_reduce_kernel (hidden_grad.cuh) adds the
+//      partials in slice order.
 // Every output element is summed over v in increasing order with one fmaf
 // a term within a slice and the slices in a fixed order, and the row
 // statistics in one fixed order: no float atomics, so two calls give the
@@ -40,7 +43,7 @@
 // read in place, each with neighbouring threads on neighbouring addresses.
 // Offsets are 64-bit (n V reaches 1.7e10 at the sizes the TPU kernel was
 // written for).
-#include "common.cuh"
+#include "hidden_grad.cuh"
 
 namespace repro_torch {
 namespace {
@@ -56,54 +59,6 @@ constexpr int kWPerThread = kHgCols * kHgDepth / kThreads;  // 8
 static_assert((kHgRows / kHgMicroI) * kHgGroupsJ == kThreads,
               "one micro-tile a thread");
 static_assert(kHgDepth == 32, "one warp reads one row's chunk");
-
-// Online-softmax pair (m, l): l = sum exp(x - m).  -inf marks "no term".
-struct MaxSum {
-  float m, l;
-};
-
-__device__ __forceinline__ MaxSum combine(MaxSum a, MaxSum b) {
-  const float m = fmaxf(a.m, b.m);
-  if (m == -INFINITY) return {m, 0.f};
-  const float la = a.m == -INFINITY ? 0.f : a.l * expf(a.m - m);
-  const float lb = b.m == -INFINITY ? 0.f : b.l * expf(b.m - m);
-  return {m, la + lb};
-}
-
-template <typename TZ>
-__global__ void __launch_bounds__(kThreads)
-hidden_grad_stats_kernel(const TZ* __restrict__ z, int64_t v_len,
-                         float2* __restrict__ stats) {
-  __shared__ MaxSum part[kWarpsPerBlock];
-  const int64_t i = blockIdx.x;
-  const TZ* row = z + i * v_len;
-  MaxSum acc{-INFINITY, 0.f};
-  for (int64_t v = threadIdx.x; v < v_len; v += kThreads) {
-    const float x = to_f32(row[v]);
-    if (x > acc.m) {
-      acc.l = (acc.m == -INFINITY ? 0.f : acc.l * expf(acc.m - x)) + 1.f;
-      acc.m = x;
-    } else if (acc.m != -INFINITY) {
-      acc.l += expf(x - acc.m);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    MaxSum o;
-    o.m = __shfl_xor_sync(0xffffffffu, acc.m, off);
-    o.l = __shfl_xor_sync(0xffffffffu, acc.l, off);
-    acc = combine(acc, o);
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) part[warp] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    MaxSum s = part[0];
-    for (int w = 1; w < kWarpsPerBlock; ++w) s = combine(s, part[w]);
-    stats[i] = make_float2(s.m, s.l);
-  }
-}
 
 struct HgSmem {
   // +4 keeps each k-row 16-byte aligned and halves store bank conflicts.
@@ -233,19 +188,6 @@ hidden_grad_kernel(const TZ* __restrict__ z, const L* __restrict__ labels,
   }
 }
 
-// out[e] = sum over s of part[s total + e], s in increasing order.
-__global__ void __launch_bounds__(kThreads)
-hidden_grad_reduce_kernel(const float* __restrict__ part, int splits,
-                          int64_t total, float* __restrict__ out) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       e < total; e += stride) {
-    float acc = part[e];
-    for (int k = 1; k < splits; ++k) acc += part[k * total + e];
-    out[e] = acc;
-  }
-}
-
 struct HgArgs {
   const void* z;
   const void* labels;
@@ -260,10 +202,8 @@ struct HgArgs {
 
 template <typename TZ, typename TW, typename L>
 cudaError_t launch_hidden_grad(const HgArgs& a, cudaStream_t s) {
-  hidden_grad_stats_kernel<TZ>
-      <<<static_cast<unsigned>(a.n), kThreads, 0, s>>>(
-          static_cast<const TZ*>(a.z), a.v_len, a.stats);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e =
+      launch_hidden_grad_stats<TZ>(a.z, a.n, a.v_len, a.stats, s);
   if (e != cudaSuccess) return e;
   const dim3 grid(static_cast<unsigned>((a.dh + kHgCols - 1) / kHgCols),
                   static_cast<unsigned>((a.n + kHgRows - 1) / kHgRows),
@@ -275,12 +215,7 @@ cudaError_t launch_hidden_grad(const HgArgs& a, cudaStream_t s) {
       a.slice, dst);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return e;
-  const int64_t total = a.n * a.dh;
-  int64_t blocks = (total + kThreads - 1) / kThreads;
-  blocks = blocks > kMaxBlocks ? kMaxBlocks : blocks;
-  hidden_grad_reduce_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      a.part, a.splits, total, a.out);
-  return cudaGetLastError();
+  return launch_hidden_grad_reduce(a.part, a.splits, a.n * a.dh, a.out, s);
 }
 
 template <typename TZ, typename TW>

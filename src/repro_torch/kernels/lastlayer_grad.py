@@ -1,11 +1,13 @@
 """Wrappers of the fused last-layer gradient kernels ``lastlayer_grad``
 (classification heads) and ``hidden_grad_fused`` (LM heads).
 
-The CUDA sources are ``csrc/lastlayer_grad.cu`` and ``csrc/hidden_grad.cu``;
-they replace the Pallas kernels ``repro/kernels/lastlayer_grad.py:
-lastlayer_grad`` and ``:hidden_grad_fused``.  CUDA tensors go to the kernel
-(or raise), CPU tensors to the plain version in ``ref.py``.  ``launches``
-counts kernel launches, and nothing else.
+The CUDA sources are ``csrc/lastlayer_grad.cu``, and for the LM head
+``csrc/hidden_grad_tc.cu`` (tensor cores, bf16 heads) and
+``csrc/hidden_grad.cu`` (FFMA, the other inputs); they replace the Pallas
+kernels ``repro/kernels/lastlayer_grad.py:lastlayer_grad`` and
+``:hidden_grad_fused``.  CUDA tensors go to a kernel (or raise), CPU
+tensors to the plain version in ``ref.py``.  ``launches`` counts kernel
+launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.args import check_matrix, check_vector, stream
 
-launches = {"lastlayer_grad": 0, "hidden_grad": 0}
+launches = {"lastlayer_grad": 0, "hidden_grad": 0, "hidden_grad_tc": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -66,8 +68,9 @@ def lastlayer_grad(hidden: torch.Tensor, logits: torch.Tensor,
 
 def _vocab_split(n: int, v: int, dh: int, dev: torch.device
                  ) -> tuple[int, int]:
-    """(splits, slice): how many slices of V the kernel sums separately,
-    each ``slice`` entries long (a multiple of its 32-entry chunk).
+    """(splits, slice) of the FFMA kernel: how many slices of V it sums
+    separately, each ``slice`` entries long (a multiple of its 32-entry
+    chunk).
 
     One block computes a (128, 64) output tile over one slice, and an SM
     holds two.  Where the tiles alone leave SMs idle, V is cut so that
@@ -83,18 +86,56 @@ def _vocab_split(n: int, v: int, dh: int, dev: torch.device
     return -(-v // slice_), slice_
 
 
-def hidden_grad_fused(logits: torch.Tensor, labels: torch.Tensor,
-                      unembed: torch.Tensor) -> torch.Tensor:
-    """``(softmax(logits) - onehot(labels)) @ unembed.T`` -> (n, d_h) f32,
-    the exact head-input gradient, with no (n, V) residual in memory.
+# The tensor-core kernel's block: a (128, 256) output tile, V in stages of
+# 64 entries, one block an SM (its ring takes 197 KB of shared memory).
+TC_ROWS, TC_COLS, TC_DEPTH = 128, 256, 64
+TC_MIN_SLICE = 16 * TC_DEPTH    # a slice fills the 4-stage ring 4 times
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 
-    logits (n, V) f32/bf16 contiguous; labels (n,) int32/int64; unembed the
-    (d_h, V) head, f32/bf16, either contiguous or the transpose of a
-    contiguous (V, d_h) matrix (``embed.T`` of a tied head).  The kernel
-    reads it through its strides: no copy of W is made.
+
+def tc_vocab_split(n: int, v: int, dh: int, sms: int) -> tuple[int, int]:
+    """(splits, slice) of the tensor-core kernel for ``sms`` SMs: V is cut
+    into ``splits`` slices of ``slice`` entries (a multiple of the 64-entry
+    stage), one block per output tile and slice, so that tiles x splits
+    fills one wave of the SMs where the tiles alone would not (at most
+    ceil(V / ``TC_MIN_SLICE``) slices); the partials are added in slice
+    order.  A function of the shapes and the SM count only, so a call's
+    sums have one fixed order.  The LM path's (512, 256 000, 2 048) on 132
+    SMs: 32 tiles x 4 slices of 64 000 entries, 128 blocks.
     """
-    if not logits.is_cuda:
-        return ref.hidden_grad_ref(logits, labels, unembed)
+    tiles = -(-n // TC_ROWS) * -(-dh // TC_COLS)
+    splits = max(1, min(sms // tiles, -(-v // TC_MIN_SLICE)))
+    slice_ = -(-(-(-v // splits)) // TC_DEPTH) * TC_DEPTH
+    return -(-v // slice_), slice_
+
+
+def takes_tensor_cores(z_dtype: torch.dtype, w_dtype: torch.dtype, n: int,
+                       v: int, dh: int, tied: bool, z_addr: int,
+                       w_addr: int) -> bool:
+    """The routing rule of ``hidden_grad_fused``: True sends the call to the
+    tensor-core kernel, False to the FFMA kernel.
+
+    The tensor-core kernel takes a bf16 head W (exact in bf16: only the
+    residual is split in two) with f32 or bf16 logits, where TMA can
+    address every operand: each row of Z and of the head's contiguous
+    matrix (Z (n, V); ``embed`` (V, d_h) of a tied head, W (d_h, V)
+    otherwise) a multiple of 16 bytes long, both data addresses 16-byte
+    aligned, and n, V, d_h below 2^31.  Everything else (an f32 head, a
+    V or d_h off those multiples, an unaligned view) goes to the FFMA
+    kernel.  The rule reads dtypes, shapes, strides and addresses only.
+    """
+    if w_dtype != torch.bfloat16 or z_dtype not in _ITEMSIZE:
+        return False
+    return (v * _ITEMSIZE[z_dtype] % 16 == 0
+            and (dh if tied else v) % 8 == 0
+            and z_addr % 16 == 0 and w_addr % 16 == 0
+            and max(n, v, dh) < 2 ** 31)
+
+
+def _hidden_grad_args(logits: torch.Tensor, labels: torch.Tensor,
+                      unembed: torch.Tensor) -> tuple[int, int, int, bool]:
+    """Check the CUDA call's arguments; (n, V, d_h, tied): tied when
+    ``unembed`` is the transpose of a contiguous (V, d_h) matrix."""
     dev = logits.device
     check_matrix("logits", logits, _DTYPES)
     n, v = logits.shape
@@ -108,9 +149,9 @@ def hidden_grad_fused(logits: torch.Tensor, labels: torch.Tensor,
                         f"{unembed.dtype}")
     dh = unembed.shape[0]
     if unembed.is_contiguous():
-        sh, sv = v, 1
+        tied = False
     elif unembed.T.is_contiguous():
-        sh, sv = 1, dh
+        tied = True
     else:
         raise ValueError("unembed must be contiguous or the transpose of a "
                          f"contiguous matrix, got strides {unembed.stride()}")
@@ -120,11 +161,90 @@ def hidden_grad_fused(logits: torch.Tensor, labels: torch.Tensor,
     if -(-n // 128) > 65535:
         raise ValueError(f"logits has {n} rows; the grid takes at most "
                          f"{65535 * 128}")
-    out = torch.empty((n, dh), dtype=torch.float32, device=dev)
+    return n, v, dh, tied
+
+
+def _empty_result(n: int, v: int, dh: int, dev: torch.device
+                  ) -> torch.Tensor | None:
+    """The result of a call with nothing to compute (no launch), else
+    None."""
     if n == 0 or dh == 0:
-        return out
+        return torch.empty((n, dh), dtype=torch.float32, device=dev)
     if v == 0:
-        return out.zero_()
+        return torch.zeros((n, dh), dtype=torch.float32, device=dev)
+    return None
+
+
+def hidden_grad_fused(logits: torch.Tensor, labels: torch.Tensor,
+                      unembed: torch.Tensor) -> torch.Tensor:
+    """``(softmax(logits) - onehot(labels)) @ unembed.T`` -> (n, d_h) f32,
+    the exact head-input gradient, with no (n, V) residual in memory.
+
+    logits (n, V) f32/bf16 contiguous; labels (n,) int32/int64 (a label
+    outside [0, V) gets no one-hot); unembed the (d_h, V) head, f32/bf16,
+    either contiguous or the transpose of a contiguous (V, d_h) matrix
+    (``embed.T`` of a tied head).  The kernels read it through its
+    strides: no copy of W is made.
+
+    A CUDA call goes by ``takes_tensor_cores`` (dtypes, shapes, strides
+    and addresses only) to the tensor-core kernel (``csrc/
+    hidden_grad_tc.cu``, counted on ``launches["hidden_grad_tc"]``): a
+    bf16 head whose rows, and the logits' rows, TMA can address, as on the
+    LM path.  Every other call goes to the FFMA kernel (``csrc/
+    hidden_grad.cu``, counted on ``launches["hidden_grad"]``).  A kernel
+    that fails raises: neither stands in for the other.
+    """
+    if not logits.is_cuda:
+        return ref.hidden_grad_ref(logits, labels, unembed)
+    n, v, dh, tied = _hidden_grad_args(logits, labels, unembed)
+    if takes_tensor_cores(logits.dtype, unembed.dtype, n, v, dh, tied,
+                          logits.data_ptr(), unembed.data_ptr()):
+        return _launch_tc(logits, labels, unembed, tied)
+    return _launch_ffma(logits, labels, unembed, tied)
+
+
+def hidden_grad_ffma(logits: torch.Tensor, labels: torch.Tensor,
+                     unembed: torch.Tensor) -> torch.Tensor:
+    """``hidden_grad_fused`` on the FFMA kernel, whatever the routing rule
+    says (``chip_smoke.py`` times it beside the tensor-core kernel)."""
+    if not logits.is_cuda:
+        return ref.hidden_grad_ref(logits, labels, unembed)
+    _, _, _, tied = _hidden_grad_args(logits, labels, unembed)
+    return _launch_ffma(logits, labels, unembed, tied)
+
+
+def _launch_tc(logits: torch.Tensor, labels: torch.Tensor,
+               unembed: torch.Tensor, tied: bool) -> torch.Tensor:
+    dev = logits.device
+    (n, v), dh = logits.shape, unembed.shape[0]
+    out = _empty_result(n, v, dh, dev)
+    if out is not None:
+        return out
+    out = torch.empty((n, dh), dtype=torch.float32, device=dev)
+    stats = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    splits, slice_ = tc_vocab_split(
+        n, v, dh, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = (torch.empty((splits, n, dh), dtype=torch.float32, device=dev)
+            if splits > 1 else out)
+    code = build.lib().rt_hidden_grad_tc(
+        dev.index, logits.data_ptr(), _DTYPES[logits.dtype],
+        labels.data_ptr(), int(labels.dtype == torch.int64),
+        unembed.data_ptr(), int(tied), stats.data_ptr(), n, v, dh, slice_,
+        splits, part.data_ptr(), out.data_ptr(), stream(dev))
+    build.check(code, "hidden_grad_tc")
+    launches["hidden_grad_tc"] += 1
+    return out
+
+
+def _launch_ffma(logits: torch.Tensor, labels: torch.Tensor,
+                 unembed: torch.Tensor, tied: bool) -> torch.Tensor:
+    dev = logits.device
+    (n, v), dh = logits.shape, unembed.shape[0]
+    out = _empty_result(n, v, dh, dev)
+    if out is not None:
+        return out
+    sh, sv = (1, dh) if tied else (v, 1)
+    out = torch.empty((n, dh), dtype=torch.float32, device=dev)
     stats = torch.empty((n, 2), dtype=torch.float32, device=dev)
     splits, slice_ = _vocab_split(n, v, dh, dev)
     part = (torch.empty((splits, n, dh), dtype=torch.float32, device=dev)

@@ -1,5 +1,5 @@
-"""Guards of the port's boundaries: ``src/repro_torch`` and
-``chip_smoke.py`` import neither JAX nor the JAX package, importing the
+"""Guards of the port's boundaries: ``src/repro_torch``, ``chip_smoke.py``
+and ``tools/`` import neither JAX nor the JAX package, importing the
 trainer loads no JAX, and the entry points refuse to run quietly on the CPU
 when no card is present."""
 
@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

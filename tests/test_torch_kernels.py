@@ -178,7 +178,8 @@ def test_dispatch_modes_and_counts():
             ops.set_backend(None)
     assert ops.launch_counts() == {"corr": 0, "corr_argmax": 0,
                                    "bound_max": 0, "lastlayer_grad": 0,
-                                   "hidden_grad": 0, "fl_gain_argmax": 0,
+                                   "hidden_grad": 0, "hidden_grad_tc": 0,
+                                   "fl_gain_argmax": 0,
                                    "fl_gain_argmax_otf": 0, "sqdist": 0}
     assert ops.launch_shapes() == {}
     for mode in ("pallas", "cuda"):

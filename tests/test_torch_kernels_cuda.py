@@ -442,3 +442,110 @@ def test_hidden_grad_counts_launches_and_rejects_bad_input(dev):
         with pytest.raises(exc):
             llg_kernel.hidden_grad_fused(*args)
     assert llg_kernel.launches["hidden_grad"] == before + 1
+
+
+# -- the tensor-core kernel (csrc/hidden_grad_tc.cu) and the routing rule ---
+
+def _hg_routed(z, y, w, kernel):
+    """``hidden_grad_fused`` within the limit, and it launched ``kernel``
+    ("hidden_grad_tc" or "hidden_grad") once and the other not at all."""
+    before = dict(llg_kernel.launches)
+    got = _hg_check(z, y, w)
+    other = "hidden_grad" if kernel == "hidden_grad_tc" else "hidden_grad_tc"
+    assert llg_kernel.launches[kernel] == before[kernel] + 1
+    assert llg_kernel.launches[other] == before[other]
+    return got
+
+
+# Ragged against every tile and stage: n off the 64-row warpgroup and the
+# 128-row block, V (a multiple of 8, as TMA needs) off the 64-entry stage,
+# d_h off the 256-column tile (and below one 64-column box).
+@pytest.mark.parametrize("n", [1, 60, 128, 300])
+@pytest.mark.parametrize("v,dh", [(64, 256), (1000, 600), (4104, 40),
+                                  (2056, 1032)])
+@pytest.mark.parametrize("zdt", ["bfloat16", "float32"])
+def test_hidden_grad_tc_kernel_matches_plain(dev, n, v, dh, zdt):
+    for tied, ldt in ((True, "int64"), (False, "int32")):
+        z, y, w = _hg_case(dev, n, v, dh, getattr(torch, zdt),
+                           torch.bfloat16, tied, ldt)
+        _hg_routed(z, y, w, "hidden_grad_tc")
+
+
+def test_hidden_grad_tc_kernel_labels_outside_the_vocabulary(dev):
+    """A label outside [0, V) gets no one-hot row, as in the plain
+    version; labels at 0 and V - 1 sit at the first and last stage's
+    edges."""
+    for tied, ldt in ((True, torch.int64), (False, torch.int32)):
+        z, y, w = _hg_case(dev, 200, 1000, 264, torch.bfloat16,
+                           torch.bfloat16, tied)
+        y = y.to(ldt)
+        y[0::5], y[1::5], y[2::5], y[3::5] = -1, 1000, 0, 999
+        if ldt == torch.int64:
+            y[4::10] = 2 ** 40
+        _hg_routed(z, y, w, "hidden_grad_tc")
+
+
+# Long vocabularies over few output tiles: V cut into 20, 33 and 33 slices
+# summed separately and added in slice order; the same bits on two calls.
+@pytest.mark.parametrize("n,v,dh", [(1, 20000, 64), (60, 33336, 104),
+                                    (200, 70000, 512)])
+def test_hidden_grad_tc_kernel_with_vocabulary_slices(dev, n, v, dh):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, _ = llg_kernel.tc_vocab_split(n, v, dh, sms)
+    assert splits > 1
+    for zdt, tied in ((torch.bfloat16, True), (torch.float32, False)):
+        z, y, w = _hg_case(dev, n, v, dh, zdt, torch.bfloat16, tied)
+        got = _hg_routed(z, y, w, "hidden_grad_tc")
+        assert torch.equal(got, llg_kernel.hidden_grad_fused(z, y, w))
+
+
+def test_hidden_grad_routing_rule_on_the_card(dev):
+    """Each call lands on the kernel ``takes_tensor_cores`` names, counted
+    on that kernel's counter; the FFMA kernel's own entry takes the
+    tensor-core kernel's inputs too."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # (n, v, dh, z dtype, w dtype, tied, kernel)
+        (60, 1000, 600, bf, bf, True, "hidden_grad_tc"),
+        (60, 1000, 600, f32, bf, False, "hidden_grad_tc"),
+        (60, 1004, 600, f32, bf, True, "hidden_grad_tc"),   # f32 rows 4 016 B
+        (60, 1004, 600, f32, bf, False, "hidden_grad"),     # W rows 2 008 B
+        (60, 513, 600, bf, bf, True, "hidden_grad"),        # Z rows 1 026 B
+        (60, 1000, 601, bf, bf, True, "hidden_grad"),       # embed rows 1 202
+        (60, 1000, 601, bf, bf, False, "hidden_grad_tc"),
+        (60, 1000, 600, bf, f32, True, "hidden_grad"),      # an f32 head
+        (60, 1000, 600, f32, f32, False, "hidden_grad"),
+    ]
+    for n, v, dh, zdt, wdt, tied, kernel in cases:
+        z, y, w = _hg_case(dev, n, v, dh, zdt, wdt, tied)
+        assert llg_kernel.takes_tensor_cores(
+            zdt, wdt, n, v, dh, tied, z.data_ptr(),
+            w.data_ptr()) == (kernel == "hidden_grad_tc")
+        _hg_routed(z, y, w, kernel)
+        # the FFMA kernel's own entry takes every input
+        before = llg_kernel.launches["hidden_grad"]
+        want = ref.hidden_grad_ref(z, y, w)
+        ffma = llg_kernel.hidden_grad_ffma(z, y, w)
+        torch.cuda.synchronize()
+        assert llg_kernel.launches["hidden_grad"] == before + 1
+        assert float((ffma - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+    # an unaligned view of aligned rows goes to the FFMA kernel
+    z, y, w = _hg_case(dev, 60, 1000, 600, bf, bf, True)
+    buf = torch.empty(z.numel() + 1, dtype=bf, device=dev)
+    zv = buf[1:].view(z.shape)
+    zv.copy_(z)
+    assert zv.data_ptr() % 16 != 0
+    _hg_routed(zv, y, w, "hidden_grad")
+
+
+def test_hidden_grad_lm_shape_goes_to_the_tensor_cores(dev):
+    """The LM path's call, (512, 256 000, 2 048) bf16 logits and the tied
+    bf16 head, advances the tensor-core counter and not the FFMA one; the
+    FFMA kernel's own entry agrees with it within the limit."""
+    z, y, w = _hg_case(dev, 512, 256_000, 2048, torch.bfloat16,
+                       torch.bfloat16, True)
+    got = _hg_routed(z, y, w, "hidden_grad_tc")
+    ffma = llg_kernel.hidden_grad_ffma(z, y, w)
+    torch.cuda.synchronize()
+    assert float((got - ffma).abs().max()) <= 1e-4 * float(
+        ffma.abs().max())
