@@ -15,17 +15,32 @@ Phases, one JSON line each:
               gives it and at ragged, tied, ``abs`` and all-masked inputs,
               with its time, its plain version's time, the time of the
               nearest single PyTorch call where there is one, and its bound;
+              the batched kernels also against B launches of the single
+              ones (the same bits) and timed beside them;
   4. trainer  ``mlp()`` at full width on 45 000 rows: per-class GRAD-MATCH
-              (budget 0.1, 2 epochs, R = 1), then one GRAD-MATCHPB
-              selection.  The launch counts are set to 0 before each path
-              and read after it: every kernel of a path must launch on it;
+              (budget 0.1, 2 epochs, R = 1) on the batched engine
+              (``corr_batched``, ``corr_argmax_batched``), then one
+              GRAD-MATCHPB selection (``corr``, ``corr_argmax``).  The
+              launch counts are set to 0 before each path and read after
+              it: every kernel of a path must launch on it;
   5. solve    the per-class solve and the GRAD-MATCHPB solve, each with the
               kernels and with the plain versions, both on the card, on the
-              same proxies: ``err`` must agree;
-  6. trace    a ``torch.profiler`` trace of the first rounds of one class's
-              OMP solve at the main path's shape: the card's busy share and
-              the host time and launches inside the NNLS loop against the
-              rest of the round;
+              same proxies: ``err`` must agree; then the batched per-class
+              solve against the former loop of ten single solves, both timed:
+              each class's picks equal, weights and ``err`` to rtol 1e-4 /
+              atol 1e-5, or parted only at a tie the two engines' f32
+              state difference can flip (``agree``);
+  6. trace    ``torch.profiler`` traces of the first rounds at the main
+              path's shape, of one class's single solve and of the batched
+              solve of all ten: the card's busy share and the host time and
+              launches inside the NNLS loop against the rest of the round;
+     sessions anytime sessions on the main path's proxies and on a seeded
+              (16 384, 256) pool: chained extensions and trajectory rows
+              equal direct starts bit for bit, the session picks what
+              ``omp_select`` picks, prefixes slice;
+     batched  ``omp_select_batched`` for 32 targets with their own masks,
+              64 rounds on the (45 000, 65) proxies (path ``batched``),
+              each row against its single solve;
   7. craig    the same data and widths through CRAIG and GLISTER, each path
               with its launch counts read on its own: ``craig-lazy`` trained
               end to end (per-gradient proxies (45 000, 65), so the
@@ -113,6 +128,18 @@ PB_ROWS = ROWS // BATCH   # GRAD-MATCHPB's mini-batch proxies: (703, 10)
 WIDE = (8192, 512)        # a full-width column cache of the wide regime
 TRACE_ROUNDS = 32         # OMP rounds in the profiler trace
 PATHS = ("gradmatch", "gradmatch-pb")
+# Kernels each trainer path must launch.
+TRAINER_NEEDS = {"gradmatch": ("corr_batched", "corr_argmax_batched",
+                               "lastlayer_grad"),
+                 "gradmatch-pb": ("corr", "corr_argmax", "lastlayer_grad")}
+CLASSES = 10
+SERVE_B, SERVE_K = 32, 64       # the batched phase: B targets, k rounds
+SESSION_POOL = (16384, 256)     # widths 128 / 256 / 384: wide, then narrow
+SESSION_KS = {"proxies": (50, 150, 300), "seeded": (100, 200, 300)}
+TRAJ_K = {"proxies": 200, "seeded": 300}
+# Two engines' states of one problem agree to f32 noise when their
+# residuals differ by at most this much of |target|.
+STATE_RTOL = 1e-5
 STREAM_CHUNK = 1024       # the trainer's chunk; select()'s is 2 048
 STREAM_BUF = 256 + 512    # buffer + repair annex rows
 PARTIAL_SLOTS = 32        # the partial cache's chunk slots (44 chunks)
@@ -140,9 +167,17 @@ KERNEL_SOURCES = {
                     "src/repro/kernels/lastlayer_grad.py:143"),
     "hidden_grad_tc": ("src/repro_torch/kernels/csrc/hidden_grad_tc.cu",
                        "src/repro/kernels/lastlayer_grad.py:143"),
+    "corr_batched": ("src/repro_torch/kernels/csrc/corr_batched.cu",
+                     "src/repro/kernels/ops.py:94"),
+    "corr_argmax_batched": ("src/repro_torch/kernels/csrc/corr_batched.cu",
+                            "src/repro/kernels/ops.py:114"),
 }
-# The path whose shape gives each kernel's top-level numbers.
-MAIN_PATH = {"corr": "gradmatch", "corr_argmax": "gradmatch",
+BATCHED = ("corr_batched", "corr_argmax_batched")
+# The path whose shape gives each kernel's top-level numbers.  Per-class
+# GRAD-MATCH runs the batched kernels; its PB variant still runs the
+# single ones.
+MAIN_PATH = {"corr": "gradmatch-pb", "corr_argmax": "gradmatch-pb",
+             "corr_batched": "gradmatch", "corr_argmax_batched": "gradmatch",
              "lastlayer_grad": "gradmatch",
              "fl_gain_argmax": "craig-resident",
              "fl_gain_argmax_otf": "craig-lazy", "sqdist": "craig-resident",
@@ -204,7 +239,8 @@ def corr_seconds(torch, shapes: dict) -> tuple[float, list]:
     from repro_torch.kernels import corr as corr_k
     gen = torch.Generator(device="cuda").manual_seed(0)
     total, table = 0.0, []
-    for (name, n, d, dt), c in sorted(shapes.items()):
+    for key, c in sorted(shapes.items()):
+        name, n, d, dt = key[:4]
         if name != "corr":
             continue
         g = torch.randn((n, d), generator=gen, device="cuda").to(
@@ -707,6 +743,175 @@ def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
     torch.cuda.synchronize()
 
 
+def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
+    """``corr_batched`` and ``corr_argmax_batched`` against their plain
+    versions and against B launches of the single kernels on the card:
+    the per-class path's (45 000, 65) pool with B = 10 and one-hot class
+    masks, the batched phase's B = 32 with random masks, a per-problem
+    (B, n, p) column cache of the wide regime (B = 4 at WIDE), ragged n
+    with a d off the 16-byte loads and B = 1 and 3, B = 40 (two chunks),
+    planted ties, an all-masked column, and ``abs``; adds their records.
+
+    Tolerances: against B single launches the same bits (the kernels sum
+    in row_dot's order); against the plain version scores to rtol 1e-5
+    (and an absolute 1e-6 of the largest |g||v| for ``corr_batched``), the
+    index equal unless the two scores are within 1e-6 of each other."""
+    from repro_torch.kernels import corr as corr_k
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    bw, flops = peaks(card["name"])
+    rng = np.random.default_rng(3)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def bound(nbytes, nflops):
+        by_bytes, by_ops = nbytes / bw * 1e3, nflops / flops * 1e3
+        return (max(by_bytes, by_ops),
+                "bytes" if by_bytes >= by_ops else "operations")
+
+    def record(err, ms, plain, lib, b, by, shape, single):
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                    bound_by=by, library_ms=lib, shape=shape,
+                    single_launches_ms=single)
+
+    # -- corr_batched: c0 of per-class (B = 10) and of the batched phase
+    #    (B = 32), the wide regime's new columns (B = 4), ragged, B > 32 --
+    for n, d, b, path in ((ROWS, 65, CLASSES, "gradmatch"),
+                          (ROWS, 65, SERVE_B, "batched"),
+                          (*WIDE, 4, None), (1001, 63, 1, None),
+                          (1001, 63, 3, None), (4097, 12, 40, None)):
+        g = t(rng.standard_normal((n, d)).astype(np.float32))
+        v = t(rng.standard_normal((b, d)).astype(np.float32))
+        got, want = corr_k.corr_batched(g, v), ref.corr_batched_ref(g, v)
+        single = torch.stack([corr_k.corr(g, v[j]) for j in range(b)], 1)
+        check(torch.equal(got, single), f"corr_batched ({n}, {d}) B={b}: "
+              "not the bits of B single corr launches")
+        err = float((got - want).abs().max())
+        scale = float(torch.sqrt((g ** 2).sum(1).max()
+                                 * (v ** 2).sum(1).max()))
+        check(torch.allclose(got, want, rtol=1e-5,
+                             atol=1e-6 * max(scale, 1.0)),
+              f"corr_batched ({n}, {d}) B={b}: max err {err}")
+        ms = device_ms(torch, lambda: corr_k.corr_batched(g, v))
+        plain = device_ms(torch, lambda: ref.corr_batched_ref(g, v))
+        lib = device_ms(torch, lambda: torch.mm(g, v.T))
+        one = device_ms(torch, lambda: [corr_k.corr(g, v[j])
+                                        for j in range(b)])
+        bd, by = bound(4 * (n * d + b * d + n * b), 2 * n * d * b)
+        emit("kernels", kernel="corr_batched", shape=[n, d, b],
+             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+             single_launches_ms=one, bound_ms=bd, bound_by=by)
+        if path:
+            records["corr_batched"][path] = record(err, ms, plain, lib, bd,
+                                                   by, [n, d, b], one)
+
+    # -- corr_argmax_batched ------------------------------------------------
+    def argmax_case(mat, w, base, mask, absolute, what):
+        gi, gv = corr_k.corr_argmax_batched(mat, w, base, mask,
+                                            absolute=absolute)
+        ri, rv = ref.corr_argmax_batched_ref(mat, w, base, mask,
+                                             absolute=absolute)
+        b = w.shape[0]
+        single = [corr_k.corr_argmax(mat if mat.dim() == 2 else mat[j],
+                                     w[j], base[:, j].contiguous(),
+                                     mask[:, j].contiguous(),
+                                     absolute=absolute) for j in range(b)]
+        check(torch.equal(gi, torch.stack([x[0] for x in single]))
+              and torch.equal(gv, torch.stack([x[1] for x in single])),
+              f"corr_argmax_batched {what}: not the bits of B single "
+              "corr_argmax launches")
+        err = 0.0
+        for j in range(b):
+            a, r_ = int(gi[j]), int(ri[j])
+            if a != r_:
+                m = mat if mat.dim() == 2 else mat[j]
+                s_ = base[:, j] - m @ w[j]
+                s_ = s_.abs() if absolute else s_
+                x, y = float(s_[a]), float(s_[r_])
+                check(bool(mask[a, j]) and abs(x - y) <= 1e-6 * abs(y),
+                      f"corr_argmax_batched {what} problem {j}: index {a} "
+                      f"vs {r_}, scores {x} {y}")
+            x, y = float(gv[j]), float(rv[j])
+            if np.isfinite(y):
+                check(abs(x - y) <= 1e-5 * abs(y) + 1e-6,
+                      f"corr_argmax_batched {what} problem {j}: value {x} "
+                      f"vs {y}")
+                err = max(err, abs(x - y))
+            else:
+                check(x == y and a == 0, f"corr_argmax_batched {what} "
+                      f"problem {j}: all masked gave ({a}, {x})")
+        return err, gi
+
+    n = ROWS
+    labels = rng.integers(0, CLASSES, n)
+    g = t(rng.standard_normal((n, 65)).astype(np.float32))
+    zeros = {b: torch.zeros((n, b), device=dev) for b in (CLASSES, SERVE_B)}
+    # per-class masks: row i is a candidate of its class only, a tenth taken
+    onehot = np.eye(CLASSES, dtype=bool)[labels] & (rng.random((n, 1)) > 0.1)
+    cases = [  # (what, mat, w, base, mask, absolute, path)
+        ("per-class", g, t(-rng.standard_normal((CLASSES, 65)).astype(
+            np.float32)), zeros[CLASSES], t(onehot), False, "gradmatch"),
+        ("per-class abs", g, t(-rng.standard_normal((CLASSES, 65)).astype(
+            np.float32)), zeros[CLASSES], t(onehot), True, None),
+        ("batched", g, t(-rng.standard_normal((SERVE_B, 65)).astype(
+            np.float32)), zeros[SERVE_B], t(rng.random((n, SERVE_B)) < 0.5),
+         False, "batched"),
+    ]
+    cc = t(rng.standard_normal((4, *WIDE)).astype(np.float32))
+    cases.append(("wide per-problem", cc,
+                  t(rng.standard_normal((4, WIDE[1])).astype(np.float32)
+                    / 16),
+                  t(rng.standard_normal((WIDE[0], 4)).astype(np.float32) * 3),
+                  t(rng.random((WIDE[0], 4)) < 0.9), True, None))
+    for b in (1, 3):
+        cases.append((f"ragged B={b}",
+                      t(rng.standard_normal((1001, 63)).astype(np.float32)),
+                      t(rng.standard_normal((b, 63)).astype(np.float32)),
+                      t(rng.standard_normal((1001, b)).astype(np.float32)),
+                      t(rng.random((1001, b)) < 0.5), b == 3, None))
+    cases.append(("two chunks B=40",
+                  t(rng.standard_normal((4097, 12)).astype(np.float32)),
+                  t(rng.standard_normal((40, 12)).astype(np.float32)),
+                  t(rng.standard_normal((4097, 40)).astype(np.float32)),
+                  t(rng.random((4097, 40)) < 0.5), False, None))
+    dup = g.clone()
+    dup[1::2] = dup[::2]
+    tie_mask = torch.ones((n, CLASSES), dtype=torch.bool, device=dev)
+    tie_mask[:, 3] = False                  # one all-masked column
+    cases.append(("ties + all-masked", dup, cases[0][2], zeros[CLASSES],
+                  tie_mask, True, None))
+    for what, mat, w, base, mask, absolute, path in cases:
+        err, gi = argmax_case(mat, w, base, mask, absolute, what)
+        if what.startswith("ties"):
+            live = [j for j in range(CLASSES) if j != 3]
+            check(all(int(gi[j]) % 2 == 0 for j in live),
+                  "corr_argmax_batched: a tie did not go to the lower row")
+        b, (nn, p) = w.shape[0], mat.shape[-2:]
+        ms = device_ms(torch, lambda: corr_k.corr_argmax_batched(
+            mat, w, base, mask, absolute=absolute))
+        plain = device_ms(torch, lambda: ref.corr_argmax_batched_ref(
+            mat, w, base, mask, absolute=absolute))
+        cols = [(base[:, j].contiguous(), mask[:, j].contiguous())
+                for j in range(b)]
+        one = device_ms(torch, lambda: [corr_k.corr_argmax(
+            mat if mat.dim() == 2 else mat[j], w[j], *cols[j],
+            absolute=absolute) for j in range(b)])
+        bd, by = bound(4 * mat.numel() + 4 * b * p + 5 * nn * b + 16 * b,
+                       2 * nn * p * b)
+        emit("kernels", kernel="corr_argmax_batched", case=what,
+             shape=list(mat.shape) + [b], absolute=absolute,
+             max_abs_err=err, ms=ms, plain_ms=plain,
+             single_launches_ms=one, bound_ms=bd, bound_by=by)
+        if path:
+            records["corr_argmax_batched"][path] = record(
+                err, ms, plain, None, bd, by, [nn, p, b], one)
+    del cc
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def phase_trainer(torch, np) -> dict:
     """The main path's two paths through their entry points, the launch
     counts set to 0 before each and read after it."""
@@ -743,8 +948,8 @@ def phase_trainer(torch, np) -> dict:
          wall_seconds=rep.wall_seconds, final_acc=rep.final_acc,
          subset_size=rep.subset_size, pb_selection_seconds=pb_seconds,
          pb_subset_size=int(sel_pb.mask.sum()), launches=counts)
-    for path in PATHS:
-        for name in ("corr", "corr_argmax", "lastlayer_grad"):
+    for path, names in TRAINER_NEEDS.items():
+        for name in names:
             check(counts[path][name] > 0,
                   f"kernel {name} was not launched on the {path} path")
     check(rep.selection_rounds == 2, "expected two selection rounds")
@@ -764,9 +969,84 @@ def phase_trainer(torch, np) -> dict:
                                   "gradmatch-pb": pb_seconds}}
 
 
+def residual_of(torch, grads, target, sol):
+    """target - G_S^T w of a solution (indices, weights, mask, ...)."""
+    idx, w, mask = sol[0], sol[1], sol[2]
+    sel = torch.where(mask, idx, 0).long()
+    return target - (w * mask) @ grads[sel]
+
+
+def agree(torch, grads, target, got, want, solve_got, solve_want,
+          what: str) -> dict:
+    """Two engines' solutions of one OMP problem, (indices, weights, mask,
+    err).  Indices and masks must be equal and weights and err within rtol
+    1e-4 / atol 1e-5, unless the picks part at a tie at the f32 noise
+    floor: at the first round t where they part, both engines are re-run
+    for t rounds (``solve_*(t)``), their residuals must agree to
+    STATE_RTOL of |target|, and the two picks' score gap under ``want``'s
+    residual (in f64) must lie within |g_a - g_b| |r_got - r_want| +
+    2^-22 (|g_a| + |g_b|) |target|: the most that the residuals'
+    difference, and the f32 rounding of a score built from target-sized
+    terms (c0 - C @ w in the wide regime, a residual cancelled from the
+    target in the narrow one), can move it.  The state agreed and the tie
+    was inside its noise."""
+    gi, gw, gm, ge = got
+    wi, ww, wm, we = want
+    differ = ((gi != wi) | (gm != wm)).nonzero()
+    if not len(differ):
+        werr = float((gw - ww).abs().max()) if gw.numel() else 0.0
+        check(torch.allclose(gw, ww, rtol=1e-4, atol=1e-5),
+              f"{what}: weights differ by {werr}")
+        check(abs(float(ge) - float(we)) <= 1e-5 + 1e-4 * abs(float(we)),
+              f"{what}: err {float(ge)} vs {float(we)}")
+        return {"parted_at": None, "max_weight_diff": werr}
+    t = int(differ[0, 0])
+    r_got = residual_of(torch, grads, target, solve_got(t))
+    r_want = residual_of(torch, grads, target, solve_want(t))
+    a, b = int(wi[t]), int(gi[t])
+    dr = float((r_got - r_want).norm())
+    tn = float(target.norm())
+    diff = grads[a] - grads[b]
+    gap = float(diff.double() @ r_want.double())
+    floor = 2.0 ** -22 * float(grads[a].norm() + grads[b].norm()) * tn
+    room = float(diff.norm()) * dr + floor
+    rec = {"parted_at": t, "picks": [a, b], "state_diff": dr / tn,
+           "residual_share": float(r_want.norm()) / tn, "score_gap": gap,
+           "gap_bound": room, "rounding_floor": floor}
+    check(dr <= STATE_RTOL * tn, f"{what}: the states differ by {dr / tn} "
+          f"of |target| at round {t}")
+    check(abs(gap) <= room, f"{what}: picks part at round {t} ({a} vs "
+          f"{b}) by {gap}, more than the state difference allows ({room})")
+    return rec
+
+
+def per_class_loop(torch, grads, labels, targets, quotas):
+    """The per-class selection as the port ran it before the batched
+    engine: one ``omp_select`` a class, each truncated to its quota and
+    reweighted by one NNLS."""
+    from repro_torch.core import omp
+
+    k_cap = int(quotas.max())
+    slot = torch.arange(k_cap, device=grads.device)
+    out = []
+    for c in range(len(quotas)):
+        idx, _, mask, _ = omp.omp_select(grads, targets[c], k=k_cap,
+                                         valid=labels == c)
+        mask = mask & (slot < int(quotas[c]))
+        idx = torch.where(mask, idx, -1)
+        sel = torch.where(mask, idx, 0).long()
+        g_s = grads[sel] * mask[:, None].to(grads.dtype)
+        w = omp._nnls_active(g_s @ g_s.T, g_s @ targets[c], mask, 0.5, 50)
+        out.append((idx, torch.where(mask, w, 0.0), mask))
+    return tuple(torch.cat([o[i] for o in out]) for i in range(3))
+
+
 def phase_solve(torch, np, model, train) -> None:
     """Per-class GRAD-MATCH and GRAD-MATCHPB, each with the kernels and with
-    the plain versions, both on the card, on the same proxies."""
+    the plain versions, both on the card, on the same proxies; then the
+    per-class selection on the batched engine against the former loop of ten
+    single solves."""
+    from repro_torch.core import omp
     from repro_torch.core.gradmatch import gradmatch_per_class, gradmatch_pb
     from repro_torch.kernels import ops
     from repro_torch.train.steps import make_proxy_fn
@@ -774,7 +1054,7 @@ def phase_solve(torch, np, model, train) -> None:
     pcg, bias = make_proxy_fn(model)(train.x, train.y)
     solves = {  # path: (candidates, solve)
         "gradmatch": (train.n, lambda: gradmatch_per_class(
-            pcg, train.y, 10, K)),
+            pcg, train.y, CLASSES, K)),
         "gradmatch-pb": (train.n // BATCH, lambda: gradmatch_pb(
             bias, BATCH, K // BATCH)),
     }
@@ -803,49 +1083,82 @@ def phase_solve(torch, np, model, train) -> None:
         check(bool(torch.isfinite(a.weights).all()),
               f"{path} weights not finite")
 
+    # The batched engine against the loop of ten single solves, kernels on.
+    y = train.y
+    sizes = np.bincount(y.cpu().numpy(), minlength=CLASSES)
+    quotas = omp.split_budget(K, sizes)
+    valids = y[None, :] == torch.arange(CLASSES, device=y.device)[:, None]
+    targets = valids.to(pcg.dtype) @ pcg
+    k_cap = int(quotas.max())
+    times = {}
+    for what, fn in (("batched", lambda: omp.omp_select_per_class(
+            pcg, y, targets, CLASSES, 0, quotas=quotas)),
+                     ("loop", lambda: per_class_loop(torch, pcg, y, targets,
+                                                     quotas))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times[what] = (res, time.perf_counter() - t0)
+    (bi, bw, bm), (li, lw, lm) = times["batched"][0], times["loop"][0]
 
-def phase_trace(torch, model, train) -> dict:
-    """A profiler trace of the first TRACE_ROUNDS rounds of class 0's OMP
-    solve on the main path's (45 000, 65) proxies.  The NNLS loop is marked
-    by wrapping ``omp._nnls_active_cached`` in a ``record_function`` for the
-    trace only.  Reports the card's busy share (the union of device
+    def batched_rounds(t):
+        return omp._omp_select_batched_incremental(
+            pcg, targets, t, 0.5, 1e-10, 50, True, valids, 128,
+            single_regime=True)
+
+    classes = []
+    for c in range(CLASSES):
+        cut = slice(c * k_cap, (c + 1) * k_cap)
+        err_b = omp.matching_error(pcg, targets[c], bi[cut], bw[cut],
+                                   bm[cut], lam=0.5)
+        err_l = omp.matching_error(pcg, targets[c], li[cut], lw[cut],
+                                   lm[cut], lam=0.5)
+        rec = agree(torch, pcg, targets[c], (bi[cut], bw[cut], bm[cut], err_b),
+                    (li[cut], lw[cut], lm[cut], err_l),
+                    lambda t: [x[c] for x in batched_rounds(t)],
+                    lambda t: omp.omp_select(pcg, targets[c], k=t,
+                                             valid=valids[c]),
+                    f"per-class batched vs loop, class {c}")
+        classes.append({"class": c, "quota": int(quotas[c]), **rec})
+    emit("solve", path="gradmatch", what="batched engine vs loop",
+         seconds_batched=times["batched"][1], seconds_loop=times["loop"][1],
+         classes=classes,
+         parted=sum(r["parted_at"] is not None for r in classes))
+
+
+def trace_rounds(torch, solve, nnls_name: str, problems: int) -> dict:
+    """A profiler trace of ``solve()`` (TRACE_ROUNDS OMP rounds), with the
+    NNLS function ``omp.<nnls_name>`` wrapped in a ``record_function`` for
+    the trace only.  Returns the card's busy share (the union of device
     activity over the solve's span), the host time and the kernel launches
-    inside the NNLS loop against the rest of the rounds, the device time of
-    the port's own kernels, and the same solve's time untraced (the
+    inside the NNLS loop against the rest of the rounds, the device time
+    of the port's own kernels, and the same solve's time untraced (the
     profiler's cost)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.core import omp
-    from repro_torch.train.steps import make_proxy_fn
-
-    pcg, _ = make_proxy_fn(model)(train.x, train.y)
-    valid = train.y == 0
-    target = pcg[valid].sum(dim=0)
-
-    def solve():
-        omp.omp_select(pcg, target, k=TRACE_ROUNDS, valid=valid)
-        torch.cuda.synchronize()
 
     solve()
     t0 = time.perf_counter()
     solve()
     untraced_s = time.perf_counter() - t0
 
-    nnls = omp._nnls_active_cached
+    nnls = getattr(omp, nnls_name)
 
     def traced_nnls(*args, **kwargs):
         with record_function("nnls"):
             return nnls(*args, **kwargs)
 
-    omp._nnls_active_cached = traced_nnls
+    setattr(omp, nnls_name, traced_nnls)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with record_function("solve"):
                 solve()
     finally:
-        omp._nnls_active_cached = nnls
+        setattr(omp, nnls_name, nnls)
 
     events = prof.events()
 
@@ -882,19 +1195,221 @@ def phase_trace(torch, model, train) -> dict:
     span = hi - lo
     nnls_host = sum(b - a for a, b in nnls_ranges)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    rec = dict(rounds=TRACE_ROUNDS, span_ms=span / 1e3,
-               untraced_ms=untraced_s * 1e3,
-               device_busy_share=busy / span if device else None,
-               nnls_host_share=nnls_host / span,
-               launches_per_round=len(launches) / TRACE_ROUNDS,
-               nnls_launches_per_round=in_nnls / TRACE_ROUNDS,
-               device_events=len(device),
-               device_us=sum(by_name.values()),
-               port_kernels_us=sum(us for name, us in by_name.items()
-                                   if "repro_torch::" in name),
-               top_device_us={name[:100]: us for name, us in top})
-    emit("trace", **rec)
-    return rec
+    return dict(rounds=TRACE_ROUNDS, problems=problems, span_ms=span / 1e3,
+                untraced_ms=untraced_s * 1e3,
+                device_busy_share=busy / span if device else None,
+                nnls_host_share=nnls_host / span,
+                launches_per_round=len(launches) / TRACE_ROUNDS,
+                nnls_launches_per_round=in_nnls / TRACE_ROUNDS,
+                device_events=len(device),
+                device_us=sum(by_name.values()),
+                port_kernels_us=sum(us for name, us in by_name.items()
+                                    if "repro_torch::" in name),
+                top_device_us={name[:100]: us for name, us in top})
+
+
+def phase_trace(torch, model, train) -> dict:
+    """Profiler traces of TRACE_ROUNDS OMP rounds on the main path's
+    (45 000, 65) proxies: a TRACE_ROUNDS-round solve of one class (wide
+    regime: the trace of the earlier runs), then the first TRACE_ROUNDS
+    rounds of the selection as the path runs them (450 rounds a class:
+    prefix width 128, narrow regime) in one class's single solve (what the
+    former loop ran ten times a round) and in the batched solve of all
+    ten classes, the batched NNLS marked."""
+    from repro_torch.core import omp
+    from repro_torch.train.steps import make_proxy_fn
+
+    pcg, _ = make_proxy_fn(model)(train.x, train.y)
+    y = train.y
+    n, d = pcg.shape
+    valids = y[None, :] == torch.arange(CLASSES, device=y.device)[:, None]
+    targets = valids.to(pcg.dtype) @ pcg
+    width = 128                 # the first block of a 450-round solve
+
+    def short_solve():
+        omp.omp_select(pcg, targets[0], k=TRACE_ROUNDS, valid=valids[0])
+        torch.cuda.synchronize()
+
+    def single():
+        c0 = omp.ops.corr(pcg, targets[0])
+        st = omp._grow_prefix(omp._empty_inc_state(width, n, d, targets[0]),
+                              width, keep_cols=width <= d)
+        omp._run_session_block(pcg, targets[0], c0, valids[0], st, 0,
+                               TRACE_ROUNDS, width <= d, 0.5, 1e-10, 50,
+                               False)
+        torch.cuda.synchronize()
+
+    def batched():
+        c0_t = omp.ops.corr_batched(pcg, targets)
+        st = omp._grow_prefix_batched(
+            omp._empty_batch_state(width, n, d, targets), width,
+            keep_cols=width <= d)
+        omp._run_batch_block(pcg, targets, c0_t, valids.T.contiguous(), st,
+                             0, TRACE_ROUNDS, width <= d, 0.5, 1e-10, 50,
+                             False)
+        torch.cuda.synchronize()
+
+    recs = {}
+    for what, solve, nnls, problems in (
+            ("single class, 32-round solve", short_solve,
+             "_nnls_active_cached", 1),
+            ("single class, main path", single, "_nnls_active_cached", 1),
+            ("batched per-class, main path", batched,
+             "_nnls_active_cached_batched", CLASSES)):
+        recs[what] = trace_rounds(torch, solve, nnls, problems)
+        emit("trace", what=what, **recs[what])
+    return recs
+
+
+def same_bits(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_sessions(torch, np, model, train) -> None:
+    """Anytime sessions on the card, on the main path's (45 000, 65)
+    proxies (class 0's target and candidates) and on a seeded f32
+    SESSION_POOL pool (the pool's sum as target), whose widths 128 / 256 /
+    384 cross from wide to narrow: ``start(k1); extend(k2); extend(k3)``
+    equals ``start(k3)`` bit for bit, the Gram included; the trajectory's
+    row t - 1 equals a fresh ``start(t)`` bit for bit at a few t; a
+    session picks what ``omp_select(k3)`` picks (``agree``); the prefix
+    result slices the session."""
+    from repro_torch.core import omp
+    from repro_torch.train.steps import make_proxy_fn
+
+    pcg, _ = make_proxy_fn(model)(train.x, train.y)
+    valid0 = train.y == 0
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    seeded = torch.randn(SESSION_POOL, generator=gen, device="cuda")
+    pools = {"proxies": (pcg, pcg[valid0].sum(0), valid0),
+             "seeded": (seeded, seeded.sum(0), None)}
+    for name, (g, target, valid) in pools.items():
+        k1, k2, k3 = SESSION_KS[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess = omp.omp_session_start(g, target, k1, valid=valid)
+        sess = omp.omp_session_extend(g, sess, k2)
+        sess = omp.omp_session_extend(g, sess, k3)
+        torch.cuda.synchronize()
+        chain_s = time.perf_counter() - t0
+        direct = omp.omp_session_start(g, target, k3, valid=valid)
+        check(same_bits(torch, omp.session_result(sess),
+                        omp.session_result(direct)),
+              f"sessions {name}: start({k1}); extend({k2}); extend({k3}) "
+              f"differs from start({k3})")
+        check(torch.equal(sess.st.gram, direct.st.gram)
+              and torch.equal(sess.st.residual, direct.st.residual),
+              f"sessions {name}: the chained Gram or residual differs")
+        check(omp.omp_session_extend(g, sess, k3) is sess,
+              f"sessions {name}: extend to the same k is not a no-op")
+        try:
+            omp.omp_session_extend(g, sess, k1)
+            check(False, f"sessions {name}: shrinking did not raise")
+        except ValueError as exc:
+            check("shrink" in str(exc), f"sessions {name}: {exc}")
+        pre = omp.session_prefix_result(sess, k2)
+        check(torch.equal(pre[0], sess.indices[:k2])
+              and torch.equal(pre[1], sess.weights[:k2])
+              and torch.equal(pre[2], sess.mask[:k2]) and pre[3] is sess.err,
+              f"sessions {name}: the prefix result does not slice")
+        try:
+            omp.session_prefix_result(sess, k3 + 1)
+            check(False, f"sessions {name}: a prefix past k did not raise")
+        except ValueError:
+            pass
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = omp.omp_select(g, target, k=k3, valid=valid)
+        torch.cuda.synchronize()
+        oneshot_s = time.perf_counter() - t0
+        vs_oneshot = agree(
+            torch, g, target, omp.session_result(sess), one,
+            lambda t: omp.session_result(omp.omp_session_start(
+                g, target, t, valid=valid)),
+            lambda t: omp.omp_select(g, target, k=t, valid=valid),
+            f"sessions {name}: session vs omp_select({k3})")
+        # trajectory: every row a fresh start, bit for bit
+        kt = TRAJ_K[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tsess, traj = omp.omp_session_trajectory(g, target, kt, valid=valid)
+        traj_s = time.perf_counter() - t0
+        checked = []
+        for t in sorted({1, 64, 128, 129, 256, 257, kt} & set(
+                range(1, kt + 1))):
+            fresh = omp.omp_session_start(g, target, t, valid=valid)
+            ok = (np.array_equal(traj.indices[:t],
+                                 fresh.indices.cpu().numpy())
+                  and np.array_equal(traj.mask[:t], fresh.mask.cpu().numpy())
+                  and np.array_equal(traj.weights_traj[t - 1, :t],
+                                     fresh.weights.cpu().numpy())
+                  and traj.err_trace[t - 1] == np.float32(fresh.err.item()))
+            check(ok, f"sessions {name}: trajectory row {t - 1} is not a "
+                  f"fresh start({t})")
+            checked.append(t)
+        check(np.array_equal(traj.indices, sess.indices[:kt].cpu().numpy()),
+              f"sessions {name}: trajectory picks differ from the session's")
+        emit("sessions", pool=name, shape=list(g.shape),
+             ks=[k1, k2, k3], chain_seconds=chain_s,
+             oneshot_seconds=oneshot_s, vs_oneshot=vs_oneshot,
+             trajectory_k=kt, trajectory_seconds=traj_s,
+             trajectory_rows_checked=checked,
+             picked=int(sess.mask.sum()), err=float(sess.err))
+    del seeded
+    torch.cuda.empty_cache()
+
+
+def phase_batched(torch, np, model, train) -> dict:
+    """``omp_select_batched`` on the card: SERVE_B targets, each the sum
+    of the main path's proxies over a seeded random subset of its own
+    request mask (as ``tests/test_serve.py`` builds them), SERVE_K rounds
+    on the (45 000, 65) pool; each row against the single solve of its
+    target (``agree``).  The launch counts are read around the batched
+    solve alone (path ``batched``)."""
+    from repro_torch.core import omp
+    from repro_torch.kernels import ops
+    from repro_torch.train.steps import make_proxy_fn
+
+    pcg, _ = make_proxy_fn(model)(train.x, train.y)
+    n = pcg.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    valid = torch.rand((SERVE_B, n), generator=gen, device="cuda") < 0.5
+    subset = torch.rand((SERVE_B, n), generator=gen, device="cuda") < 0.3
+    targets = (valid & subset).to(pcg.dtype) @ pcg
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = omp.omp_select_batched(pcg, targets, k=SERVE_K, valid=valid)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    counts, shapes = ops.launch_counts(), ops.launch_shapes()
+    for name in BATCHED:
+        check(counts[name] > 0, f"kernel {name} was not launched on the "
+              "batched path")
+    t0 = time.perf_counter()
+    singles = [omp.omp_select(pcg, targets[b], k=SERVE_K, valid=valid[b])
+               for b in range(SERVE_B)]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    rows = []
+    for b in range(SERVE_B):
+        rec = agree(torch, pcg, targets[b], tuple(x[b] for x in got),
+                    singles[b],
+                    lambda t: [x[b] for x in omp.omp_select_batched(
+                        pcg, targets, k=t, valid=valid)],
+                    lambda t: omp.omp_select(pcg, targets[b], k=t,
+                                             valid=valid[b]),
+                    f"batched row {b}")
+        if rec["parted_at"] is not None:
+            rows.append({"row": b, **rec})
+        sel = got[0][b][got[2][b]].long()
+        check(bool(valid[b][sel].all()), f"batched row {b} picked a row "
+              "outside its mask")
+    emit("batched", B=SERVE_B, k=SERVE_K, shape=list(pcg.shape),
+         seconds_batched=batched_s, seconds_single=single_s,
+         launches=counts, parted_rows=rows)
+    return {"counts": {"batched": counts}, "shapes": {"batched": shapes},
+            "selection_seconds": {"batched": batched_s}}
 
 
 def phase_craig(torch, np, train, val) -> dict:
@@ -1672,20 +2187,20 @@ def main() -> int:
     records = phase_kernels(torch, np, card)
     phase_kernels_fl(torch, np, card, records)
     phase_kernels_stream(torch, np, card, records)
+    phase_kernels_batched(torch, np, card, records)
     tr = phase_trainer(torch, np)
     phase_solve(torch, np, tr["model"], tr["train"])
     phase_trace(torch, tr["model"], tr["train"])
+    phase_sessions(torch, np, tr["model"], tr["train"])
+    ba = phase_batched(torch, np, tr["model"], tr["train"])
     cr = phase_craig(torch, np, tr["train"], tr["val"])
     st = phase_stream(torch, np, tr["train"], tr["val"])
     lm_ = phase_lm(torch, np, card, records)
-    counts = {**tr["counts"], **cr["counts"], **st["counts"],
-              **lm_["counts"]}
-    shapes = {**tr["shapes"], **cr["shapes"], **st["shapes"],
-              **lm_["shapes"]}
-    selection_seconds = {**tr["selection_seconds"],
-                         **cr["selection_seconds"],
-                         **st["selection_seconds"],
-                         **lm_["selection_seconds"]}
+    runs = (tr, ba, cr, st, lm_)
+    counts = {p: c for r in runs for p, c in r["counts"].items()}
+    shapes = {p: c for r in runs for p, c in r["shapes"].items()}
+    selection_seconds = {p: c for r in runs
+                         for p, c in r["selection_seconds"].items()}
     kernels = []
     kernel_s = {path: 0.0 for path in counts}
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -1700,9 +2215,14 @@ def main() -> int:
             check(rec is not None, f"{name} launched on {path} at a shape "
                   "the kernels phase did not measure")
             paths[path] = {"launches": c[name], **rec}
-            for kname, n, d, _ in shapes[path]:
+            for kname, n, d, _, *batch in shapes[path]:
+                # a batched kernel's key adds (B, per-problem matrix): the
+                # paths give it a shared pool, measured at its B
+                ran = [n, d, *batch[:1]]
+                per_problem = bool(batch[1:] and batch[1])
                 check(kname != name or name == "corr"
-                      or rec["shape"] == [n, d], f"{name} ran at ({n}, {d}) "
+                      or (rec["shape"] == ran and not per_problem),
+                      f"{name} ran at {ran} (per-problem: {per_problem}) "
                       f"on {path}, measured at {rec['shape']}")
             if name != "corr":
                 kernel_s[path] += c[name] * rec["ms"] / 1e3

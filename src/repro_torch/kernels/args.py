@@ -20,14 +20,21 @@ def check_matrix(name: str, m: torch.Tensor, dtypes) -> None:
 
 def check_vector(name: str, v: torch.Tensor, length: int,
                  device: torch.device, dtype: torch.dtype) -> None:
-    if v.device != device:
-        raise ValueError(f"{name} is on {v.device}, the matrix on {device}")
-    if v.shape != (length,):
-        raise ValueError(f"{name} must have shape ({length},), got "
-                         f"{tuple(v.shape)}")
-    if v.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {v.dtype}")
-    if not v.is_contiguous():
+    check_array(name, v, (length,), device, dtype)
+
+
+def check_array(name: str, t: torch.Tensor, shape: tuple,
+                device: torch.device, dtype: torch.dtype) -> None:
+    """An operand on ``device`` of exactly ``shape`` and ``dtype``, and
+    contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the matrix on {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 

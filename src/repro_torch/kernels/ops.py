@@ -44,9 +44,10 @@ def launch_counts() -> dict[str, int]:
     return {name: n for counts in _COUNTERS for name, n in counts.items()}
 
 
-def launch_shapes() -> dict[tuple[str, int, int, str], int]:
+def launch_shapes() -> dict[tuple, int]:
     """``corr`` and ``bound_max`` launches since the last
-    ``reset_launch_counts``, by (kernel, rows, d, dtype)."""
+    ``reset_launch_counts``, by (kernel, rows, d, dtype), and the batched
+    kernels' by (kernel, rows, d, dtype, B, per-problem matrix)."""
     return dict(corr_kernel.shapes)
 
 
@@ -73,6 +74,29 @@ def corr_argmax(colcache: torch.Tensor, w: torch.Tensor, base: torch.Tensor,
                                    absolute=absolute)
     return corr_kernel.corr_argmax(colcache, w, base, mask,
                                    absolute=absolute)
+
+
+def corr_batched(grads: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """Batched OMP scores ``(B, d)`` against one pool -> **(n, B)** f32,
+    pool-major: column b is ``corr(grads, vecs[b])``."""
+    if _FORCE == "ref":
+        return ref.corr_batched_ref(grads, vecs)
+    return corr_kernel.corr_batched(grads, vecs)
+
+
+def corr_argmax_batched(mat: torch.Tensor, w: torch.Tensor,
+                        base_t: torch.Tensor, mask_t: torch.Tensor, *,
+                        absolute: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched fused OMP scoring: per-problem masked argmax of ``base -
+    mat @ w`` with ``mat`` shared ``(n, p)`` or per-problem ``(B, n, p)``
+    and ``base_t`` / ``mask_t`` pool-major ``(n, B)`` -> (indices (B,),
+    values (B,))."""
+    if _FORCE == "ref":
+        return ref.corr_argmax_batched_ref(mat, w, base_t, mask_t,
+                                           absolute=absolute)
+    return corr_kernel.corr_argmax_batched(mat, w, base_t, mask_t,
+                                           absolute=absolute)
 
 
 def bound_max(rows: torch.Tensor, norms: torch.Tensor, errn: torch.Tensor,

@@ -42,6 +42,40 @@ def corr_argmax_ref(colcache: torch.Tensor, w: torch.Tensor,
     return _masked_argmax(scores, mask)
 
 
+def corr_batched_ref(grads: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """Batched OMP scores: (n, d) @ (B, d)^T -> **(n, B)** in f32.
+
+    Column b is ``corr_ref(grads, vecs[b])``; the output is pool-major, as
+    in the reference (the orientation the shared-operand product gives).
+    """
+    return grads.float() @ vecs.float().T
+
+
+def corr_argmax_batched_ref(mat: torch.Tensor, w: torch.Tensor,
+                            base_t: torch.Tensor, mask_t: torch.Tensor,
+                            absolute: bool = False
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B masked argmaxes of ``base - mat @ w``, one per problem.
+
+    ``mat`` is a shared pool ``(n, p)`` (every problem scores the same rows
+    against its own ``w[b]``) or per-problem ``(B, n, p)``; w (B, p);
+    ``base_t`` / ``mask_t`` pool-major ``(n, B)`` -> (indices (B,) i32,
+    values (B,) f32).  Per problem the single contract holds: the lowest
+    index wins a tie and an all-masked column gives (0, -inf).
+    """
+    w = w.float()
+    if mat.dim() == 2:
+        scores = base_t.float() - mat.float() @ w.T                # (n, B)
+    else:
+        scores = base_t.float() - torch.einsum("bnp,bp->nb", mat.float(), w)
+    if absolute:
+        scores = scores.abs()
+    scores = torch.where(mask_t, scores, float("-inf"))
+    idx = torch.argmax(scores, dim=0)
+    vals = scores.gather(0, idx[None, :])[0]
+    return idx.to(torch.int32), vals
+
+
 def bound_max_ref(rows: torch.Tensor, norms: torch.Tensor,
                   errn: torch.Tensor, residual: torch.Tensor, acc, thresh,
                   mask: torch.Tensor, absolute: bool = False

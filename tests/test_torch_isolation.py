@@ -31,6 +31,8 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("src/repro_torch/train/trainer.py",
                  "src/repro_torch/kernels/ops.py", "chip_smoke.py",
+                 "src/repro_torch/kernels/corr.py",
+                 "src/repro_torch/core/omp.py",
                  "src/repro_torch/launch/train.py",
                  "src/repro_torch/models/lm.py",
                  "src/repro_torch/models/attention.py",

@@ -177,6 +177,8 @@ def test_dispatch_modes_and_counts():
         finally:
             ops.set_backend(None)
     assert ops.launch_counts() == {"corr": 0, "corr_argmax": 0,
+                                   "corr_batched": 0,
+                                   "corr_argmax_batched": 0,
                                    "bound_max": 0, "lastlayer_grad": 0,
                                    "hidden_grad": 0, "hidden_grad_tc": 0,
                                    "fl_gain_argmax": 0,

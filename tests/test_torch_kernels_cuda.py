@@ -549,3 +549,176 @@ def test_hidden_grad_lm_shape_goes_to_the_tensor_cores(dev):
     torch.cuda.synchronize()
     assert float((got - ffma).abs().max()) <= 1e-4 * float(
         ffma.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# corr_batched, corr_argmax_batched (csrc/corr_batched.cu)
+# ---------------------------------------------------------------------------
+
+# B = 1 / 2 / 4 / 8 / 16 / 32-problem chunks and B > 32 (a second chunk);
+# d = 65 (scalar lanes), 8 / 512 / 700 (16-byte loads where d % 4 == 0).
+BATCHED = [(1, 1, 1), (7, 65, 10), (33, 8, 3), (45000, 65, 10),
+           (45000, 65, 32), (300, 512, 2), (129, 700, 33), (1000, 12, 5),
+           (513, 65, 64)]
+
+
+@pytest.mark.parametrize("n,d,b", BATCHED)
+def test_corr_batched_kernel_matches_plain_and_single_launches(dev, n, d, b):
+    """Column b equals rt_corr on vecs[b] bit for bit (the same lane order
+    and butterfly pairs); the plain version within the f32 dot rounding."""
+    rng = np.random.default_rng(n + 3 * d + b)
+    g = _t(rng.standard_normal((n, d)).astype(np.float32), dev)
+    v = _t(rng.standard_normal((b, d)).astype(np.float32), dev)
+    got = corr_kernel.corr_batched(g, v)
+    want = ref.corr_batched_ref(g, v)
+    single = torch.stack([corr_kernel.corr(g, v[j]) for j in range(b)], 1)
+    torch.cuda.synchronize()
+    assert got.shape == (n, b)
+    assert torch.equal(got, single)
+    scale = float(torch.sqrt((g ** 2).sum(1).max() * (v ** 2).sum(1).max()))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6 * max(scale, 1.0))
+
+
+def _batched_case(dev, n, p, b, seed, shared):
+    rng = np.random.default_rng(seed)
+    mat = _t(rng.standard_normal((n, p) if shared else (b, n, p)).astype(
+        np.float32), dev)
+    w = _t(rng.standard_normal((b, p)).astype(np.float32), dev)
+    base = _t(3 * rng.standard_normal((n, b)).astype(np.float32), dev)
+    mask = _t(rng.random((n, b)) < 0.7, dev)
+    return mat, w, base, mask
+
+
+def _check_batched_argmax(mat, w, base, mask, absolute):
+    gi, gv = corr_kernel.corr_argmax_batched(mat, w, base, mask,
+                                             absolute=absolute)
+    ri, rv = ref.corr_argmax_batched_ref(mat, w, base, mask,
+                                         absolute=absolute)
+    b = w.shape[0]
+    single = [corr_kernel.corr_argmax(mat if mat.dim() == 2 else mat[j],
+                                      w[j], base[:, j].contiguous(),
+                                      mask[:, j].contiguous(),
+                                      absolute=absolute) for j in range(b)]
+    torch.cuda.synchronize()
+    # B single launches: the same bits.
+    assert torch.equal(gi, torch.stack([s[0] for s in single]))
+    assert torch.equal(gv, torch.stack([s[1] for s in single]))
+    for j in range(b):
+        m = mat if mat.dim() == 2 else mat[j]
+        if int(gi[j]) != int(ri[j]):
+            # Only a true near-tie under another summation order may differ.
+            s = base[:, j] - m @ w[j]
+            s = s.abs() if absolute else s
+            assert bool(mask[int(gi[j]), j])
+            np.testing.assert_allclose(float(s[int(gi[j])]),
+                                       float(s[int(ri[j])]), rtol=1e-6)
+        if np.isfinite(float(rv[j])):
+            np.testing.assert_allclose(float(gv[j]), float(rv[j]), rtol=1e-5)
+        else:
+            assert float(gv[j]) == float(rv[j]) and int(gi[j]) == 0
+    return gi, gv
+
+
+@pytest.mark.parametrize("n,p,b", BATCHED)
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("absolute", [False, True])
+def test_corr_argmax_batched_kernel_matches_plain_and_single_launches(
+        dev, n, p, b, shared, absolute):
+    _check_batched_argmax(*_batched_case(dev, n, p, b, n + p + b, shared),
+                          absolute)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_corr_argmax_batched_kernel_ties_and_all_masked(dev, shared):
+    n, p, b = 5000, 65, 12
+    mat, w, base, mask = _batched_case(dev, n, p, b, 9, shared)
+    if shared:
+        mat[1::2] = mat[::2]
+    else:
+        mat[:, 1::2] = mat[:, ::2]
+    base.zero_()
+    mask.fill_(True)
+    mask[:, 4] = False
+    for absolute in (False, True):
+        gi, gv = _check_batched_argmax(mat, w, base, mask, absolute)
+        for j in range(b):
+            if j == 4:
+                assert int(gi[j]) == 0 and float(gv[j]) == float("-inf")
+            else:
+                assert int(gi[j]) % 2 == 0
+
+
+def test_batched_wrappers_count_reject_and_take_plain_on_the_cpu(dev):
+    g = torch.ones((6, 3), device=dev)
+    v = torch.ones((2, 3), device=dev)
+    base = torch.zeros((6, 2), device=dev)
+    mask = torch.ones((6, 2), dtype=torch.bool, device=dev)
+    before = dict(corr_kernel.launches)
+    key = ("corr_batched", 6, 3, "float32", 2, False)
+    shaped = corr_kernel.shapes.get(key, 0)
+    corr_kernel.corr_batched(g, v)
+    corr_kernel.corr_argmax_batched(g, v, base, mask)
+    assert corr_kernel.launches["corr_batched"] == before["corr_batched"] + 1
+    assert (corr_kernel.launches["corr_argmax_batched"]
+            == before["corr_argmax_batched"] + 1)
+    assert corr_kernel.shapes[key] == shaped + 1
+    bad = [
+        (TypeError, lambda: corr_kernel.corr_batched(g.double(), v)),
+        (ValueError, lambda: corr_kernel.corr_batched(g, v[:, :2])),
+        (ValueError, lambda: corr_kernel.corr_batched(g, v.cpu())),
+        (TypeError, lambda: corr_kernel.corr_argmax_batched(
+            g.to(torch.bfloat16), v, base, mask)),
+        (ValueError, lambda: corr_kernel.corr_argmax_batched(
+            g, v, base.T, mask)),
+        (TypeError, lambda: corr_kernel.corr_argmax_batched(
+            g, v, base, mask.float())),
+        (ValueError, lambda: corr_kernel.corr_argmax_batched(
+            g[None].expand(2, 6, 3), v, base, mask)),
+        (ValueError, lambda: corr_kernel.corr_argmax_batched(
+            g, v, base, mask[:, :1])),
+    ]
+    for exc, call in bad:
+        with pytest.raises(exc):
+            call()
+    assert corr_kernel.launches["corr_batched"] == before["corr_batched"] + 1
+    assert (corr_kernel.launches["corr_argmax_batched"]
+            == before["corr_argmax_batched"] + 1)
+    # CPU tensors take the plain versions and launch nothing.
+    got = corr_kernel.corr_batched(g.cpu(), v.cpu())
+    assert got.device.type == "cpu" and got.tolist() == [[3.0, 3.0]] * 6
+    gi, _ = corr_kernel.corr_argmax_batched(g.cpu(), v.cpu(), base.cpu(),
+                                            mask.cpu())
+    assert gi.device.type == "cpu" and gi.tolist() == [0, 0]
+    assert corr_kernel.launches["corr_batched"] == before["corr_batched"] + 1
+
+
+def test_batched_omp_on_the_card_equals_single_solves(dev):
+    """omp_select_batched and per-class selection on the card, kernels
+    on: each row picks what the single solve picks (weights and err to
+    rtol 1e-4 / atol 1e-5), and the kernels launch."""
+    from repro_torch.core import omp
+
+    rng = np.random.default_rng(12)
+    g = _t(rng.standard_normal((3000, 65)).astype(np.float32), dev)
+    labels = _t(rng.integers(0, 6, 3000), dev)
+    targets = torch.stack([g[labels == c].sum(0) for c in range(6)])
+    ops.reset_launch_counts()
+    bi, bw, bm, be = omp.omp_select_batched(g, targets, k=40, lam=0.3)
+    counts = ops.launch_counts()
+    assert counts["corr_batched"] == 1 and counts["corr_argmax_batched"] == 40
+    for c in range(6):
+        si, sw, sm, se = omp.omp_select(g, targets[c], k=40, lam=0.3)
+        assert torch.equal(bi[c], si) and torch.equal(bm[c], sm)
+        np.testing.assert_allclose(bw[c].cpu().numpy(), sw.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(float(be[c]), float(se), rtol=1e-4,
+                                   atol=1e-5)
+    idx, w, mask = omp.omp_select_per_class(g, labels, targets, 6, 30,
+                                            lam=0.5)
+    for c in range(6):
+        si, sw, sm, _ = omp.omp_select(g, targets[c], k=30, lam=0.5,
+                                       valid=labels == c)
+        assert torch.equal(idx[c * 30:(c + 1) * 30], si)
+        np.testing.assert_allclose(w[c * 30:(c + 1) * 30].cpu().numpy(),
+                                   sw.cpu().numpy(), rtol=1e-4, atol=1e-5)
