@@ -93,6 +93,9 @@ must move (each input read once, each output written once) over the card's
 published memory bandwidth and its operations over the card's published
 rate for their type: f32 outside the tensor cores, and for
 ``hidden_grad_tc`` its two bf16 passes at the dense bf16 tensor-core rate.
+Where the work depends on the data (a masked argmax, ``bound_max``'s
+masked-in rows), the bytes and operations are the ones this run's masks
+need.
 """
 
 from __future__ import annotations
@@ -102,7 +105,7 @@ import statistics
 import subprocess
 import sys
 import time
-from dataclasses import replace
+from dataclasses import asdict, replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -284,7 +287,30 @@ def phase_build() -> None:
     emit("build", library=str(path.relative_to(ROOT)),
          nvcc_seconds=build.build_seconds,
          load_seconds=time.perf_counter() - t0,
-         ptxas_hidden_grad_tc=ptxas_report(log, "hidden_grad_tc_kernel"))
+         ptxas_hidden_grad_tc=ptxas_report(log, "hidden_grad_tc_kernel"),
+         ptxas_corr_batched_rows=ptxas_report(log, "row_tiles_kernel"),
+         ptxas_corr_batched_warps=ptxas_report(log, "corr_batched_kernel"),
+         ptxas_corr_argmax_batched_warps=ptxas_report(
+             log, "corr_argmax_batched_kernel"))
+
+
+def device_ops(torch, fn) -> int:
+    """Device operations (kernels, memsets, copies) one call of ``fn``
+    makes, by ``torch.profiler``; ``fn`` runs once before, untraced.  A
+    trace with no device record at all lost its records (every call traced
+    here launches), and is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                  for e in prof.events())
+        if ops:
+            break
+    return ops
 
 
 def phase_kernels(torch, np, card: dict) -> dict:
@@ -400,7 +426,10 @@ def phase_kernels(torch, np, card: dict) -> dict:
             c, wv, base, mask, absolute=absolute))
         plain = device_ms(torch, lambda: ref.corr_argmax_ref(
             c, wv, base, mask, absolute=absolute))
-        b, by = bound(n * p * 4 + 4 * p + 4 * n + n + 8, 2 * n * p)
+        # What the mask needs: every mask byte, the row and base of each
+        # live row, the vector, and (idx, val).
+        live = int(mask.sum())
+        b, by = bound(4 * p * live + 4 * p + 4 * live + n + 8, 2 * p * live)
         emit("kernels", kernel="corr_argmax", case=what, shape=[n, p],
              absolute=absolute, max_abs_err=err, ms=ms, plain_ms=plain,
              bound_ms=b)
@@ -750,7 +779,11 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
     masks, the batched phase's B = 32 with random masks, a per-problem
     (B, n, p) column cache of the wide regime (B = 4 at WIDE), ragged n
     with a d off the 16-byte loads and B = 1 and 3, B = 40 (two chunks),
-    planted ties, an all-masked column, and ``abs``; adds their records.
+    planted ties, an all-masked column, a live -inf below masked rows, and
+    ``abs``; adds their records.  Each line carries the launch plan (route,
+    tile, ring, grid, shared memory) and the device operations one call
+    makes (``torch.profiler``; one, or the script fails).  First, the read
+    rate of the (45 000, 65) pool in the L2 cache.
 
     Tolerances: against B single launches the same bits (the kernels sum
     in row_dot's order); against the plain version scores to rtol 1e-5
@@ -771,10 +804,32 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
         return (max(by_bytes, by_ops),
                 "bytes" if by_bytes >= by_ops else "operations")
 
-    def record(err, ms, plain, lib, b, by, shape, single):
+    def record(err, ms, plain, lib, b, by, shape, single, plan, ops):
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                     bound_by=by, library_ms=lib, shape=shape,
-                    single_launches_ms=single)
+                    single_launches_ms=single, plan=plan, device_ops=ops)
+
+    def plan_of(mat, b, argmax):
+        """The launch plan the wrapper takes for ``mat`` and B problems."""
+        n, d = mat.shape[-2:]
+        return asdict(corr_k.batched_plan(
+            n, d, b, argmax=argmax, per_problem=mat.dim() == 3,
+            vec=mat.data_ptr() % 16 == 0 and d % 4 == 0,
+            sms=torch.cuda.get_device_properties(dev).multi_processor_count))
+
+    # The pool the OMP rounds re-read stays in the 50 MB L2 between calls:
+    # its read rate there, by one torch.sum over it, beside a sum of one
+    # element (the launch floor in this timing).
+    pool = t(np.random.default_rng(4).standard_normal((ROWS, 65)).astype(
+        np.float32))
+    floor = device_ms(torch, lambda: pool[:1, :1].sum())
+    whole = device_ms(torch, lambda: pool.sum())
+    nbytes = pool.numel() * 4
+    emit("kernels", kernel="l2_read", shape=[ROWS, 65], bytes=nbytes,
+         sum_ms=whole, floor_ms=floor, bytes_per_s=nbytes / whole * 1e3,
+         bytes_per_s_past_floor=nbytes / (whole - floor) * 1e3,
+         hbm_bytes_per_s=bw)
+    del pool
 
     # -- corr_batched: c0 of per-class (B = 10) and of the batched phase
     #    (B = 32), the wide regime's new columns (B = 4), ragged, B > 32 --
@@ -799,13 +854,18 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
         lib = device_ms(torch, lambda: torch.mm(g, v.T))
         one = device_ms(torch, lambda: [corr_k.corr(g, v[j])
                                         for j in range(b)])
+        ops = device_ops(torch, lambda: corr_k.corr_batched(g, v))
+        check(ops == 1, f"corr_batched ({n}, {d}) B={b}: {ops} device "
+              "operations a call")
+        plan = plan_of(g, b, False)
         bd, by = bound(4 * (n * d + b * d + n * b), 2 * n * d * b)
         emit("kernels", kernel="corr_batched", shape=[n, d, b],
              max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-             single_launches_ms=one, bound_ms=bd, bound_by=by)
+             single_launches_ms=one, bound_ms=bd, bound_by=by, plan=plan,
+             device_ops=ops)
         if path:
-            records["corr_batched"][path] = record(err, ms, plain, lib, bd,
-                                                   by, [n, d, b], one)
+            records["corr_batched"][path] = record(
+                err, ms, plain, lib, bd, by, [n, d, b], one, plan, ops)
 
     # -- corr_argmax_batched ------------------------------------------------
     def argmax_case(mat, w, base, mask, absolute, what):
@@ -851,7 +911,8 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
     # per-class masks: row i is a candidate of its class only, a tenth taken
     onehot = np.eye(CLASSES, dtype=bool)[labels] & (rng.random((n, 1)) > 0.1)
     cases = [  # (what, mat, w, base, mask, absolute, path)
-        ("per-class", g, t(-rng.standard_normal((CLASSES, 65)).astype(
+        ("per-class, a tenth taken", g,
+         t(-rng.standard_normal((CLASSES, 65)).astype(
             np.float32)), zeros[CLASSES], t(onehot), False, "gradmatch"),
         ("per-class abs", g, t(-rng.standard_normal((CLASSES, 65)).astype(
             np.float32)), zeros[CLASSES], t(onehot), True, None),
@@ -882,12 +943,29 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
     tie_mask[:, 3] = False                  # one all-masked column
     cases.append(("ties + all-masked", dup, cases[0][2], zeros[CLASSES],
                   tie_mask, True, None))
+    # A live score of -inf below masked rows: the lowest row overall wins
+    # (a masked one); problem 3 picks its finite live row over a live -inf.
+    ninf_base = torch.zeros((n, 4), device=dev)
+    ninf_mask = torch.zeros((n, 4), dtype=torch.bool, device=dev)
+    ninf_mask[100:, 0] = True
+    ninf_base[:, 0] = float("-inf")
+    ninf_mask[40, 1] = True
+    ninf_base[40, 1] = float("-inf")
+    ninf_mask[::5, 2] = True
+    ninf_mask[7, 3] = ninf_mask[9, 3] = True
+    ninf_base[7, 3] = float("-inf")
+    cases.append(("live -inf below masked rows", g,
+                  t(rng.standard_normal((4, 65)).astype(np.float32)),
+                  ninf_base, ninf_mask, False, None))
     for what, mat, w, base, mask, absolute, path in cases:
         err, gi = argmax_case(mat, w, base, mask, absolute, what)
         if what.startswith("ties"):
             live = [j for j in range(CLASSES) if j != 3]
             check(all(int(gi[j]) % 2 == 0 for j in live),
                   "corr_argmax_batched: a tie did not go to the lower row")
+        if what.startswith("live -inf"):
+            check(gi.tolist() == [0, 0, gi.tolist()[2], 9],
+                  f"corr_argmax_batched: -inf rule picked {gi.tolist()}")
         b, (nn, p) = w.shape[0], mat.shape[-2:]
         ms = device_ms(torch, lambda: corr_k.corr_argmax_batched(
             mat, w, base, mask, absolute=absolute))
@@ -898,15 +976,26 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
         one = device_ms(torch, lambda: [corr_k.corr_argmax(
             mat if mat.dim() == 2 else mat[j], w[j], *cols[j],
             absolute=absolute) for j in range(b)])
-        bd, by = bound(4 * mat.numel() + 4 * b * p + 5 * nn * b + 16 * b,
-                       2 * nn * p * b)
+        ops = device_ops(torch, lambda: corr_k.corr_argmax_batched(
+            mat, w, base, mask, absolute=absolute))
+        check(ops == 1, f"corr_argmax_batched {what}: {ops} device "
+              "operations a call")
+        plan = plan_of(mat, b, True)
+        # What this case's masks need: the mask, base and a dot product for
+        # live pairs only, the rows of mat that some live pair reads (a
+        # shared pool's row once), the vectors, and (idx, val).
+        live = int(mask.sum())
+        rows_read = int(mask.any(1).sum()) if mat.dim() == 2 else live
+        bd, by = bound(4 * p * rows_read + 4 * b * p + nn * b + 4 * live
+                       + 8 * b, 2 * p * live)
         emit("kernels", kernel="corr_argmax_batched", case=what,
              shape=list(mat.shape) + [b], absolute=absolute,
              max_abs_err=err, ms=ms, plain_ms=plain,
-             single_launches_ms=one, bound_ms=bd, bound_by=by)
+             single_launches_ms=one, bound_ms=bd, bound_by=by, plan=plan,
+             device_ops=ops)
         if path:
             records["corr_argmax_batched"][path] = record(
-                err, ms, plain, None, bd, by, [nn, p, b], one)
+                err, ms, plain, None, bd, by, [nn, p, b], one, plan, ops)
     del cc
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

@@ -107,9 +107,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_corr.argtypes = [i32, p, i32, p, p, i64, i64, i32, p]
     lib.rt_corr_argmax.argtypes = [i32, p, p, p, p, i64, i64, i32, i32, p,
                                    p, p, p]
-    lib.rt_corr_batched.argtypes = [i32, p, p, p, i64, i64, i64, i32, p]
+    lib.rt_corr_batched.argtypes = [i32, p, p, p, i64, i64, i64, i32, i32,
+                                    i32, i32, i32, i64, p]
     lib.rt_corr_argmax_batched.argtypes = [i32, p, p, p, p, i64, i64, i64,
-                                           i32, i32, i32, p, p, p, p]
+                                           i32, i32, i32, i32, i32, i32, i32,
+                                           i64, p, p, p, p]
     lib.rt_lastlayer_grad.argtypes = [i32, p, p, p, i32, p, p, i64, i64, i64,
                                       p]
     lib.rt_fl_gain_argmax.argtypes = [i32, p, p, p, i64, p, p, p, p, p]

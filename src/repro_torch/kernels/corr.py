@@ -14,9 +14,15 @@ if the launch failed; given CPU tensors it runs the plain version in
 ``launches`` counts kernel launches, and nothing else; ``shapes`` counts the
 same launches of ``corr`` and ``bound_max`` by (kernel, rows, d, dtype),
 and of the batched kernels by (kernel, rows, d, dtype, B, per-problem).
+
+The batched kernels launch by a plan (``batched_plan``), a pure function of
+the shapes: the row-tile route (one thread a row) for a shared pool of
+width 1-96, the warp route (one warp a row) for the rest.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -95,6 +101,160 @@ def corr_argmax(colcache: torch.Tensor, w: torch.Tensor, base: torch.Tensor,
     return idx, val
 
 
+# -- the batched kernels' launch plan (csrc/corr_batched.cu) ----------------
+# The source owns the row tiles' layout and its constants (RowLayout,
+# kRowThreads, kRowMaxD, kMaxSmem, kKeyStride) and refuses a launch whose
+# layout does not fit; these mirror them for the plan's fit decision and
+# the workspace's size.
+
+ROW_THREADS = 128       # a row-tile block's threads (kRowThreads)
+ROW_MAX_D = 96          # the widest row a thread keeps in registers
+ROW_MIN_ROWS = 1 << 11  # smaller pools take the warps, and so do
+ROW_MIN_PAIRS = 1 << 14  # smaller batches (PERF.md §6)
+BLOCK_SMEM = 232_448    # a block's most shared memory on sm_90 (227 KB)
+SM_SMEM = 233_472       # an SM's, of which each block reserves 1 KB
+# Blocks an SM by rows a thread, the kernel's bounds: 128 threads at up to
+# 128 registers each (one row a thread), or 170 (two rows).
+ROW_BLOCKS_PER_SM = {1: 4, 2: 3}
+WARP_ROWS = 8           # the warp route's warps a block, one row each
+WARP_BLOCKS_PER_SM = 4
+
+
+@dataclass(frozen=True)
+class BatchedPlan:
+    """How a batched kernel launches at a shape.  ``route`` "rows": one
+    thread a row (or two), tiles of ``rows`` consecutive rows loaded by
+    bulk copy into a ring of ``stages`` shared-memory slots, ``groups``
+    threads sharing each row's problems, ``smem`` bytes of dynamic shared
+    memory; "warps": one warp a row, ``rows`` warps a block, static shared
+    memory only (``groups`` 1).  ``grid`` blocks."""
+    route: str
+    rows: int
+    stages: int
+    grid: int
+    smem: int
+    groups: int = 1
+
+
+def _align128(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+def rows_smem(d: int, b: int, rows: int, stages: int, argmax: bool) -> int:
+    """Dynamic shared memory of a row-tile block, the total of the kernel's
+    ``RowLayout``: barriers, B vectors of 32 ceil(d / 32) + 12 floats, B x 128 keys
+    (argmax) or a (rows, B | 1) output tile, then ``stages`` tile slots."""
+    vs = 32 * -(-d // 32) + 12
+    keys = _align128(128 + b * vs * 4)
+    per = b * ROW_THREADS * 8 if argmax else rows * (b | 1) * 4
+    return _align128(keys + per) + stages * _align128(rows * d * 4 + 16)
+
+
+def row_split(b: int, argmax: bool, vec: bool) -> tuple[int, int]:
+    """(problem groups, rows a thread) on the row-tile route, as measured
+    on an H100 (``PERF.md``).  One thread scores a row against every
+    problem of a small batch.  For more problems a thread holds two rows,
+    so each vector element it reads from shared memory (the reads that set
+    the pace) serves two dot products, and the problems are shared by two
+    (``corr_batched`` from 8) or four (``corr_argmax_batched`` from 16)
+    groups of threads.  The 16-byte order keeps one row a thread."""
+    if vec or b < (16 if argmax else 8):
+        return 1, 1
+    return (4 if argmax else 2), 2
+
+
+def batched_plan(n: int, d: int, b: int, *, argmax: bool,
+                 per_problem: bool = False, vec: bool = False,
+                 sms: int = 132) -> BatchedPlan:
+    """The launch of ``corr_batched`` (``argmax`` False) or
+    ``corr_argmax_batched`` on an (n, d) pool and B problems (``vec``: the
+    pool takes 16-byte loads, ``_vec_ok``), on a card of ``sms`` SMs.
+
+    Row tiles take a shared pool with 1 <= d <= 96 whose vectors, keys and
+    a tile slot fit in a block's shared memory: one slot a block where
+    every tile gets its own block in one wave, else a ring of two in a
+    persistent wave; a pool of fewer tiles than SMs shares each row's
+    problems among more threads.  Every other shape takes the warps, and
+    so does a pool of fewer than ``ROW_MIN_ROWS`` rows or a batch of fewer
+    than ``ROW_MIN_PAIRS`` (row, problem) pairs.  On an H100 the row
+    tiles' set-up (barriers, the vectors' staging, a bulk copy's round
+    trip) costs 1-2 us more than the warps' and is repaid from about 2^14
+    pairs; under 2^11 rows their few tiles leave most SMs idle while each
+    thread walks its problems in turn."""
+    if (not per_problem and 1 <= d <= ROW_MAX_D and b >= 1
+            and n >= ROW_MIN_ROWS and n * b >= ROW_MIN_PAIRS):
+        groups, per_thread = row_split(b, argmax, vec)
+        if -(-n // (ROW_THREADS * per_thread // groups)) < sms:
+            # fewer tiles than SMs: one row a thread, the problems shared
+            # by up to four threads
+            groups, per_thread = min(4, 1 << (b.bit_length() - 1)), 1
+        rows = ROW_THREADS * per_thread // groups
+        tiles = max(1, -(-n // rows))
+
+        def fit(stages):
+            smem = rows_smem(d, b, rows, stages, argmax)
+            return smem, min(SM_SMEM // (smem + 1024),
+                             ROW_BLOCKS_PER_SM[per_thread])
+
+        smem, per_sm = fit(1)
+        if smem <= BLOCK_SMEM:
+            smem2, per2 = fit(2)
+            if tiles <= sms * per_sm or smem2 > BLOCK_SMEM:
+                return BatchedPlan("rows", rows, 1, tiles, smem, groups)
+            return BatchedPlan("rows", rows, 2, min(tiles, sms * per2), smem2,
+                               groups)
+    grid = max(1, min(-(-n // WARP_ROWS), sms * WARP_BLOCKS_PER_SM))
+    return BatchedPlan("warps", WARP_ROWS, 0, grid, 0)
+
+
+def tile_spans(n: int, d: int, offset: int,
+               rows: int = ROW_THREADS) -> list[tuple[int, ...]]:
+    """(first row, rows, head, bulk, tail) of each tile of ``rows`` rows as
+    the kernel loads it (``start_tile``) from an (n, d) f32 pool whose
+    first element lies ``offset`` bytes past a 16-byte boundary: ``bulk``
+    bytes by one bulk copy from a 16-byte boundary, the ``head`` before it
+    and the ``tail`` after it by plain loads."""
+    spans = []
+    for r0 in range(0, n, rows):
+        k = min(rows, n - r0)
+        a = offset + r0 * d * 4
+        e = a + k * d * 4
+        a16 = min(-(-a // 16) * 16, e)
+        e16 = max(e // 16 * 16, a16)
+        spans.append((r0, k, a16 - a, e16 - a16, e - e16))
+    return spans
+
+
+_SMS: dict[int, int] = {}
+
+
+def _plan(dev: torch.device, n: int, d: int, b: int, argmax: bool,
+          per_problem: bool = False, vec: bool = False) -> BatchedPlan:
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return batched_plan(n, d, b, argmax=argmax, per_problem=per_problem,
+                        vec=vec, sms=_SMS[dev.index])
+
+
+# corr_argmax_batched's workspace: B key words (one 128-byte line each)
+# and a completion counter, per (device, stream), zero when made.  The
+# kernel's last block returns them to zero, so a call needs no memset;
+# after a failed call the workspace is dropped and the next call makes a
+# new one.  (Make it with a first call before capturing calls into a CUDA
+# graph.)
+KEY_STRIDE = 16
+_workspaces: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _workspace(dev: torch.device, s: int, words: int) -> torch.Tensor:
+    ws = _workspaces.get((dev.index, s))
+    if ws is None or ws.numel() < words:
+        ws = torch.zeros((max(words, 64),), dtype=torch.int64, device=dev)
+        _workspaces[(dev.index, s)] = ws
+    return ws
+
+
 def corr_batched(grads: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     """Batched scores ``grads @ vecs.T`` in f32, pool-major: grads (n, d)
     f32, vecs (B, d) f32 -> (n, B) f32, column b equal to
@@ -109,9 +269,12 @@ def corr_batched(grads: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, bsz), dtype=torch.float32, device=dev)
     if bsz == 0:
         return out
+    vec = _vec_ok(grads)
+    plan = _plan(dev, n, d, bsz, argmax=False, vec=bool(vec))
     code = build.lib().rt_corr_batched(
         dev.index, grads.data_ptr(), vecs.data_ptr(), out.data_ptr(), n, d,
-        bsz, _vec_ok(grads), stream(dev))
+        bsz, vec, int(plan.route == "rows"), plan.rows, plan.groups,
+        plan.stages, plan.grid, stream(dev))
     build.check(code, "corr_batched")
     _count("corr_batched", grads, bsz, False)
     return out
@@ -150,12 +313,18 @@ def corr_argmax_batched(mat: torch.Tensor, w: torch.Tensor,
     val = torch.empty((bsz,), dtype=torch.float32, device=dev)
     if bsz == 0:
         return idx, val
-    scratch = torch.empty((bsz,), dtype=torch.int64, device=dev)
+    vec = int(mat.data_ptr() % 16 == 0 and p % 4 == 0)
+    plan = _plan(dev, n, p, bsz, argmax=True, per_problem=per_problem,
+                 vec=bool(vec))
+    s = stream(dev)
+    ws = _workspace(dev, s, KEY_STRIDE * bsz + 1)
     code = build.lib().rt_corr_argmax_batched(
         dev.index, mat.data_ptr(), w.data_ptr(), base_t.data_ptr(),
-        mask_t.data_ptr(), n, p, bsz, int(per_problem), int(absolute),
-        int(mat.data_ptr() % 16 == 0 and p % 4 == 0), scratch.data_ptr(),
-        idx.data_ptr(), val.data_ptr(), stream(dev))
+        mask_t.data_ptr(), n, p, bsz, int(per_problem), int(absolute), vec,
+        int(plan.route == "rows"), plan.rows, plan.groups, plan.stages,
+        plan.grid, ws.data_ptr(), idx.data_ptr(), val.data_ptr(), s)
+    if code != 0:
+        _workspaces.pop((dev.index, s), None)
     build.check(code, "corr_argmax_batched")
     _count("corr_argmax_batched", mat, bsz, per_problem)
     return idx, val

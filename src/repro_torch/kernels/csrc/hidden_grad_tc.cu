@@ -62,6 +62,7 @@
 #include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
 
 #include "hidden_grad.cuh"
+#include "mbarrier.cuh"
 
 namespace repro_torch {
 namespace {
@@ -73,7 +74,6 @@ constexpr int kTcThreads = 384;  // two consumer warpgroups, one producer
 constexpr int kTcConsumerWarps = 8;
 constexpr int kSwizzle = 128;    // bytes a swizzled row holds
 constexpr int kTcFlush = 32;     // stages summed in the tensor cores alone
-constexpr long long kWatchdogCycles = 1ll << 34;
 
 template <typename TZ>
 struct TcCfg {
@@ -87,52 +87,6 @@ struct TcCfg {
   // + the 2 kStages barriers + slack to align the ring to 1 024 bytes
   static constexpr int kSmem = kStages * kStageBytes + 16 * kStages + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
-          "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "{\n .reg .b64 st;\n"
-      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// Wait until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > kWatchdogCycles) __trap();
-}
 
 // One 2-D TMA box into shared memory, its bytes counted on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,

@@ -6,6 +6,8 @@ no JAX, so it runs on the card's machine:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 
@@ -647,6 +649,169 @@ def test_corr_argmax_batched_kernel_ties_and_all_masked(dev, shared):
                 assert int(gi[j]) == 0 and float(gv[j]) == float("-inf")
             else:
                 assert int(gi[j]) % 2 == 0
+
+
+# Widths on either side of the row tiles' register columns (1, 8 and 12
+# take 16-byte lanes when aligned, 33 / 65 are 32 k + 1).
+ROUTED = [(1, 1, 1), (7, 65, 10), (33, 8, 3), (129, 33, 17), (300, 63, 9),
+          (1000, 12, 5), (513, 65, 64), (257, 96, 33), (4097, 64, 16),
+          (45000, 65, 10)]
+
+
+@pytest.mark.parametrize("n,d,b", ROUTED)
+@pytest.mark.parametrize("route", ["rows", "warps"])
+def test_batched_kernels_on_each_route(dev, monkeypatch, n, d, b, route):
+    """Both routes at every width, whatever the plan would pick: the row
+    tiles down to one row (their set-up threshold lifted), the warps up to
+    the main path's pool (the row tiles' width bound lowered).  Each
+    problem equals its single launch bit for bit."""
+    if route == "rows":
+        monkeypatch.setattr(corr_kernel, "ROW_MIN_ROWS", 0)
+        monkeypatch.setattr(corr_kernel, "ROW_MIN_PAIRS", 0)
+    else:
+        monkeypatch.setattr(corr_kernel, "ROW_MAX_D", 0)
+    vec = d % 4 == 0
+    assert corr_kernel.batched_plan(n, d, b, argmax=True,
+                                    vec=vec).route == route
+    rng = np.random.default_rng(n + d + 7 * b)
+    g = _t(rng.standard_normal((n, d)).astype(np.float32), dev)
+    v = _t(rng.standard_normal((b, d)).astype(np.float32), dev)
+    single = torch.stack([corr_kernel.corr(g, v[j]) for j in range(b)], 1)
+    assert torch.equal(corr_kernel.corr_batched(g, v), single)
+    base = _t(rng.standard_normal((n, b)).astype(np.float32), dev)
+    for mask in (_t(rng.random((n, b)) < 0.5, dev),
+                 _class_masks(dev, n, b, n + b)):
+        _check_batched_argmax(g, v, base, mask, False)
+
+
+def _class_masks(dev, n, b, seed, taken=0.1):
+    """Per-class selection's masks: row i a candidate of its own class
+    only, a ``taken`` share of the rows already picked."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, b, n)
+    return _t(np.eye(b, dtype=bool)[labels]
+              & (rng.random((n, 1)) >= taken), dev)
+
+
+@pytest.mark.parametrize("absolute", [False, True])
+def test_corr_argmax_batched_main_path_class_masks(dev, absolute):
+    """The main path's call: the shared (45 000, 65) pool, B = 10, a zero
+    base and one-hot class masks with a tenth of the rows taken."""
+    n, p, b = 45000, 65, 10
+    mat, w, _, _ = _batched_case(dev, n, p, b, 21, True)
+    base = torch.zeros((n, b), device=dev)
+    mask = _class_masks(dev, n, b, 22)
+    assert corr_kernel.batched_plan(n, p, b, argmax=True).route == "rows"
+    _check_batched_argmax(mat, -w, base, mask, absolute)
+
+
+def test_corr_argmax_batched_live_minus_inf_below_masked_rows(dev):
+    """A live -inf ties with the masked rows' -inf: the lowest index
+    overall wins (a masked row), on both routes."""
+    for n, p, shared in ((5000, 65, True), (5000, 130, True),
+                         (3000, 12, False)):
+        b = 4
+        mat, w, base, mask = _batched_case(dev, n, p, b, 23, shared)
+        mask.fill_(False)
+        mask[100:, 0] = True
+        base[:, 0] = float("-inf")
+        mask[40, 1] = True
+        base[40, 1] = float("-inf")
+        mask[7, 3] = True
+        base[7, 3] = float("-inf")
+        mask[9, 3] = True
+        mask[::5, 2] = True
+        gi, gv = _check_batched_argmax(mat, w, base, mask, False)
+        assert gi.tolist()[:2] == [0, 0] and int(gi[3]) == 9
+        assert gv.tolist()[:2] == [float("-inf")] * 2
+
+
+@pytest.mark.parametrize("n,d,b", [(4097, 64, 10), (45000, 64, 32),
+                                   (1001, 65, 3), (300, 8, 40)])
+def test_batched_kernels_on_an_unaligned_pool(dev, n, d, b):
+    """A pool view that starts off a 16-byte boundary takes rt_corr's
+    scalar order (``_vec_ok``); the batched kernels take the same, and the
+    row tiles load its unaligned head and tail by plain loads."""
+    rng = np.random.default_rng(n + d + b)
+    buf = _t(rng.standard_normal(n * d + 1).astype(np.float32), dev)
+    g = buf[1:].view(n, d)
+    assert g.data_ptr() % 16 == 4 and not corr_kernel._vec_ok(g)
+    v = _t(rng.standard_normal((b, d)).astype(np.float32), dev)
+    single = torch.stack([corr_kernel.corr(g, v[j]) for j in range(b)], 1)
+    assert torch.equal(corr_kernel.corr_batched(g, v), single)
+    base = _t(rng.standard_normal((n, b)).astype(np.float32), dev)
+    mask = _t(rng.random((n, b)) < 0.5, dev)
+    _check_batched_argmax(g, v, base, mask, True)
+
+
+def test_corr_argmax_batched_workspace_per_stream_and_after_a_failure(
+        dev, monkeypatch):
+    """Back-to-back calls on two streams, each with its own workspace,
+    which every call leaves zero; a failed launch drops the workspace, so
+    the next call starts from zeros even if the failure left keys."""
+    n, p, b = 20000, 65, 10
+    mat, w, base, _ = _batched_case(dev, n, p, b, 31, True)
+    mask = _class_masks(dev, n, b, 32)
+    want = [corr_kernel.corr_argmax(mat, w[j], base[:, j].contiguous(),
+                                    mask[:, j].contiguous())
+            for j in range(b)]
+    want_i = torch.stack([x[0] for x in want])
+    want_v = torch.stack([x[1] for x in want])
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(3):
+        for s in (s1, s2):
+            with torch.cuda.stream(s):
+                got.append(corr_kernel.corr_argmax_batched(mat, w, base,
+                                                           mask))
+    torch.cuda.synchronize()
+    for gi, gv in got:
+        assert torch.equal(gi, want_i) and torch.equal(gv, want_v)
+    di = mat.device.index
+    keys = [(di, s.cuda_stream) for s in (s1, s2)]
+    for k in keys:
+        assert int(corr_kernel._workspaces[k].abs().sum()) == 0
+    assert corr_kernel._workspaces[keys[0]].data_ptr() != (
+        corr_kernel._workspaces[keys[1]].data_ptr())
+    # A failure: a plan of three problem groups, which the kernel has no
+    # form for, so the launch is refused; the workspace it left (keys
+    # planted here) is dropped.
+    key = (di, torch.cuda.current_stream(dev).cuda_stream)
+    corr_kernel.corr_argmax_batched(mat, w, base, mask)
+    corr_kernel._workspaces[key].fill_(-1)
+    good = corr_kernel._plan
+    assert good(mat.device, n, p, b, True).route == "rows"
+    monkeypatch.setattr(corr_kernel, "_plan", lambda *a, **k: replace(
+        good(*a, **k), groups=3))
+    with pytest.raises(RuntimeError, match="corr_argmax_batched"):
+        corr_kernel.corr_argmax_batched(mat, w, base, mask)
+    assert key not in corr_kernel._workspaces
+    monkeypatch.setattr(corr_kernel, "_plan", good)
+    gi, gv = corr_kernel.corr_argmax_batched(mat, w, base, mask)
+    assert torch.equal(gi, want_i) and torch.equal(gv, want_v)
+
+
+def test_corr_argmax_batched_one_device_operation_a_call(dev):
+    """After the first call made the workspace, a call is one kernel: no
+    memset, no decode launch."""
+    from torch.profiler import ProfilerActivity, profile
+    n, p, b = 45000, 65, 10
+    mat, w, base, _ = _batched_case(dev, n, p, b, 41, True)
+    mask = _class_masks(dev, n, b, 42)
+    for m, v in ((mat, w), (mat[:, :64].contiguous(),      # 16-byte lanes
+                            w[:, :64].contiguous())):
+        corr_kernel.corr_argmax_batched(m, v, base, mask)
+        torch.cuda.synchronize()
+        for _ in range(3):  # a trace with no record at all lost them
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                corr_kernel.corr_argmax_batched(m, v, base, mask)
+                torch.cuda.synchronize()
+            ops = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            if ops:
+                break
+        assert len(ops) == 1, [e.name for e in ops]
 
 
 def test_batched_wrappers_count_reject_and_take_plain_on_the_cpu(dev):
