@@ -255,6 +255,18 @@ def corr_seconds(torch, shapes: dict) -> tuple[float, list]:
     return total, table
 
 
+def bound_route(torch, shapes: dict) -> str:
+    """The route ``bound_max``'s plan gives the one arena a path scanned
+    (the arena is a whole allocation: its rows and mask are aligned)."""
+    from repro_torch.kernels import corr as corr_k
+    arenas = {key[1:4] for key in shapes if key[0] == "bound_max"}
+    check(len(arenas) == 1, f"bound_max scanned arenas {arenas}")
+    (n, d, dt), = arenas
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return corr_k.bound_max_plan(n, d, 2 if dt == "bfloat16" else 4, 0, 0,
+                                 sms).route
+
+
 def phase_device(torch) -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -440,12 +452,16 @@ def phase_kernels(torch, np, card: dict) -> dict:
     gi, _ = corr_k.corr_argmax(dup, -r, zeros, every, absolute=True)
     check(int(gi) % 2 == 0, "corr_argmax: a tie did not go to the lower row")
 
-    # -- lastlayer_grad: both paths n = 45 000, d_h = 64, C = 10 -----------
+    # -- lastlayer_grad: both paths n = 45 000, d_h = 64, C = 10; the stream
+    #    path's chunks n = 1 024; a tail tile; C = 37 (the warps only).  Each
+    #    route the plan can give the shape, against the other bit for bit.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n, dh, nc, ldt, paths in ((ROWS, 64, 10, "int64",
                                    PATHS + CRAIG_PATHS),
                                   (ROWS, 64, 10, "int32", ()),
                                   (STREAM_CHUNK, 64, 10, "int64",
                                    ("gradmatch-stream",)),
+                                  (4097, 65, 10, "int64", ()),
                                   (1001, 84, 37, "int64", ())):
         h = t(np.maximum(rng.standard_normal((n, dh)), 0).astype(np.float32))
         z = t(3 * rng.standard_normal((n, nc)).astype(np.float32))
@@ -457,16 +473,42 @@ def phase_kernels(torch, np, card: dict) -> dict:
         check(torch.allclose(resid, rr, rtol=1e-5, atol=1e-6)
               and torch.allclose(hgrad, rh, rtol=1e-5, atol=1e-6),
               f"lastlayer_grad disagrees at ({n}, {dh}, {nc}): {err}")
+        addrs = [a.data_ptr() for a in (h, z, y, resid, hgrad)]
+        plan = asdict(llg_k.lastlayer_plan(n, dh, nc, addrs, sms,
+                                           y.element_size()))
+        route_ms = {}
+        for route in ("tiles", "warps"):
+            try:
+                llg_k.lastlayer_plan(n, dh, nc, addrs, sms, y.element_size(),
+                                     route)
+            except ValueError:
+                continue            # a shape the tile route does not take
+            got = llg_k.lastlayer_grad(h, z, y, route=route)
+            check(torch.equal(got[0], resid) and torch.equal(got[1], hgrad),
+                  f"lastlayer_grad ({n}, {dh}, {nc}) {ldt}: the {route} "
+                  f"route is not the {plan['route']} route's bits")
+            route_ms[route] = device_ms(
+                torch, lambda: llg_k.lastlayer_grad(h, z, y, route=route))
+        ops = device_ops(torch, lambda: llg_k.lastlayer_grad(h, z, y))
+        check(ops == 1, f"lastlayer_grad ({n}, {dh}, {nc}): {ops} device "
+              "operations a call")
         ms = device_ms(torch, lambda: llg_k.lastlayer_grad(h, z, y))
         plain = device_ms(torch, lambda: ref.lastlayer_grad_ref(h, z, y))
+        # The card's floor for this traffic: copies of the same bytes.
+        copy_ms = device_ms(torch, lambda: (hgrad.copy_(h),
+                                            resid.copy_(z)))
         nbytes = 2 * 4 * n * (dh + nc) + y.element_size() * n
         b, by = bound(nbytes, n * (4 * nc + dh))
         emit("kernels", kernel="lastlayer_grad", shape=[n, dh, nc],
-             labels=ldt, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b)
+             labels=ldt, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+             route_ms=route_ms, copy_floor_ms=copy_ms, plan=plan,
+             device_ops=ops)
         for path in paths:
             records["lastlayer_grad"][path] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=None, shape=[n, dh, nc])
+                bound_by=by, library_ms=None, shape=[n, dh, nc],
+                route_ms=route_ms, copy_floor_ms=copy_ms, plan=plan,
+                device_ops=ops)
     torch.cuda.synchronize()
     return records
 
@@ -674,7 +716,10 @@ def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
     """``bound_max`` against its plain version on the card at the two
     arenas of the streaming paths, with masks shaped like theirs (empty
     slots and taken rows off), ``abs`` off and on, thresholds of -inf, +inf
-    and the middle of a gap, and an all-masked input; adds its records.
+    and the middle of a gap, an all-masked input and planted ties; on each
+    route (the tile route and the row loop) against the other bit for
+    bit; one device operation a call, and the stream's workspace zero
+    after it; adds its records.
 
     Rows and residual lie on a 1/8 grid, so every dot product is exact in
     f32 and the kernel and the plain version differ only in the rounding
@@ -687,9 +732,20 @@ def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
     dev = torch.device("cuda")
     bw, flops = peaks(card["name"])
     rng = np.random.default_rng(2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def both_routes(*args, absolute=False):
+        """The default call, checked equal to each route's bit for bit."""
+        got = corr_k.bound_max(*args, absolute=absolute)
+        for route in ("tiles", "rows"):
+            other = corr_k.bound_max(*args, absolute=absolute, route=route)
+            check(all(torch.equal(a, b) for a, b in zip(got, other)),
+                  f"bound_max {tuple(args[0].shape)}: the {route} route "
+                  f"gave {other}, the plan's {got}")
+        return got
 
     for d, chunk, path in ((10, STREAM_CHUNK, "gradmatch-stream"),
                            (65, 2 * STREAM_CHUNK, "stream-pooled")):
@@ -721,8 +777,8 @@ def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
             mid = float((srt[mid_at] + srt[mid_at + 1]) / 2)
             for thresh in (float("-inf"), float("inf"), mid):
                 th = torch.full((), thresh, device=dev)
-                gv, gi, gc = corr_k.bound_max(rows, norms, errn, r, acc, th,
-                                              mask, absolute=absolute)
+                gv, gi, gc = both_routes(rows, norms, errn, r, acc, th, mask,
+                                         absolute=absolute)
                 wv, wi, wc = ref.bound_max_ref(rows, norms, errn, r, acc, th,
                                                mask, absolute=absolute)
                 gv, gi, gc = float(gv), int(gi), int(gc)
@@ -737,7 +793,7 @@ def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
             check(0 < wc < int(mask.sum()), f"bound_max ({n}, {d}): the "
                   f"middle threshold counts {wc} rows")
         none = torch.zeros_like(mask)
-        got = corr_k.bound_max(rows, norms, errn, r, acc, 0.0, none)
+        got = both_routes(rows, norms, errn, r, acc, 0.0, none)
         check((float(got[0]), int(got[1]), int(got[2]))
               == (float("-inf"), 0, 0), f"bound_max all masked gave {got}")
         dup = rows.clone()
@@ -745,11 +801,26 @@ def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
         dn, de = norms.clone(), errn.clone()
         dn[1::2], de[1::2] = dn[::2], de[::2]
         every = torch.ones_like(mask)
-        gi = int(corr_k.bound_max(dup, dn, de, r, acc, 0.0, every)[1])
+        gi = int(both_routes(dup, dn, de, r, acc, 0.0, every)[1])
         check(gi % 2 == 0, f"bound_max: a tie went to row {gi}")
         th = torch.full((), mid, device=dev)
-        ms = device_ms(torch, lambda: corr_k.bound_max(
-            rows, norms, errn, r, acc, th, mask, absolute=True))
+        ws_key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+
+        def call(route=None):
+            return corr_k.bound_max(rows, norms, errn, r, acc, th, mask,
+                                    absolute=True, route=route)
+
+        ops = device_ops(torch, call)
+        check(ops == 1, f"bound_max ({n}, {d}): {ops} device operations a "
+              "call")
+        torch.cuda.synchronize()
+        check(int(corr_k._bound_workspaces[ws_key].abs().sum()) == 0,
+              f"bound_max ({n}, {d}): the workspace is not zero after a call")
+        plan = asdict(corr_k.bound_max_plan(n, d, 2, rows.data_ptr(),
+                                            mask.data_ptr(), sms))
+        route_ms = {route: device_ms(torch, lambda: call(route))
+                    for route in ("tiles", "rows")}
+        ms = device_ms(torch, call)
         plain = device_ms(torch, lambda: ref.bound_max_ref(
             rows, norms, errn, r, acc, th, mask, absolute=True))
         # What this mask needs: every row's mask byte; the bf16 row, norms
@@ -765,10 +836,12 @@ def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
                  "bytes" if by_bytes >= by_ops else "operations")
         emit("kernels", kernel="bound_max", shape=[n, d], dtype="bfloat16",
              masked_in=m_in, max_abs_err=err, tolerance=tol,
-             ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+             ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+             route_ms=route_ms, plan=plan, device_ops=ops)
         records["bound_max"][path] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-            library_ms=None, shape=[n, d])
+            library_ms=None, shape=[n, d], route_ms=route_ms, plan=plan,
+            device_ops=ops)
     torch.cuda.synchronize()
 
 
@@ -1021,26 +1094,33 @@ def phase_trainer(torch, np) -> dict:
     pb = AdaptiveTrainer(cfg, replace(tcfg, strategy="gradmatch-pb"),
                          train, val)
 
-    counts, shapes = {}, {}
+    counts, shapes, routes = {}, {}, {}
     ops.reset_launch_counts()
     rep = trainer.run(model)
     counts["gradmatch"] = ops.launch_counts()
     shapes["gradmatch"] = ops.launch_shapes()
+    routes["gradmatch"] = ops.launch_routes()
     ops.reset_launch_counts()
     sel_pb, pb_seconds = pb._run_selection(model, None)
     counts["gradmatch-pb"] = ops.launch_counts()
     shapes["gradmatch-pb"] = ops.launch_shapes()
+    routes["gradmatch-pb"] = ops.launch_routes()
 
     emit("trainer", strategy="gradmatch", rows=train.n, budget=BUDGET,
          epochs=2, select_every=1, selection_rounds=rep.selection_rounds,
          selection_seconds=rep.selection_seconds,
          wall_seconds=rep.wall_seconds, final_acc=rep.final_acc,
          subset_size=rep.subset_size, pb_selection_seconds=pb_seconds,
-         pb_subset_size=int(sel_pb.mask.sum()), launches=counts)
+         pb_subset_size=int(sel_pb.mask.sum()), launches=counts,
+         routes=routes)
     for path, names in TRAINER_NEEDS.items():
         for name in names:
             check(counts[path][name] > 0,
                   f"kernel {name} was not launched on the {path} path")
+        # the proxies of all 45 000 rows: the tile route, every launch
+        check(routes[path]["lastlayer_grad/tiles"]
+              == counts[path]["lastlayer_grad"],
+              f"{path}: lastlayer_grad left the tile route: {routes[path]}")
     check(rep.selection_rounds == 2, "expected two selection rounds")
     check(rep.subset_size == K,
           f"per-class selection kept {rep.subset_size} rows, not {K}")
@@ -1052,8 +1132,8 @@ def phase_trainer(torch, np) -> dict:
           f"PB selection kept {int(sel_pb.mask.sum())} rows")
     check(bool(torch.isfinite(w).all()) and abs(float(w.sum()) - 1) < 1e-4,
           "PB selection weights are not finite or do not sum to 1")
-    return {"counts": counts, "shapes": shapes, "model": model,
-            "train": train, "val": val,
+    return {"counts": counts, "shapes": shapes, "routes": routes,
+            "model": model, "train": train, "val": val,
             "selection_seconds": {"gradmatch": rep.selection_seconds,
                                   "gradmatch-pb": pb_seconds}}
 
@@ -1732,6 +1812,7 @@ def phase_stream(torch, np, train, val) -> dict:
     rep = trainer.run(model)
     counts = {"gradmatch-stream": ops.launch_counts()}
     shapes = {"gradmatch-stream": ops.launch_shapes()}
+    routes = {"gradmatch-stream": ops.launch_routes()}
     # The first selection against in-memory pooled OMP on the rows and the
     # target the streaming pass saw (chunked extraction, summed chunk by
     # chunk; a full-matrix sum may differ in its last bits).
@@ -1754,6 +1835,7 @@ def phase_stream(torch, np, train, val) -> dict:
          final_acc=rep.final_acc, subset_size=rep.subset_size,
          select_stats=[stats_of(sel) for sel, _ in sels],
          launches=counts["gradmatch-stream"],
+         routes=routes["gradmatch-stream"],
          launches_per_selection={
              name: counts["gradmatch-stream"][name] / 2
              for name in ("corr", "bound_max", "lastlayer_grad")},
@@ -1775,6 +1857,11 @@ def phase_stream(torch, np, train, val) -> dict:
     for name in ("corr", "bound_max", "lastlayer_grad"):
         check(counts["gradmatch-stream"][name] > 0,
               f"kernel {name} was not launched on the gradmatch-stream path")
+    # the arena scans: the route the plan gives the arena, every launch
+    route = bound_route(torch, shapes["gradmatch-stream"])
+    check(routes["gradmatch-stream"][f"bound_max/{route}"]
+          == counts["gradmatch-stream"]["bound_max"],
+          f"bound_max left the {route} route: {routes['gradmatch-stream']}")
     check(part is None and torch.equal(first.mask, mask), "streaming and "
           f"in-memory pooled OMP part at round {part}")
 
@@ -1809,7 +1896,7 @@ def phase_stream(torch, np, train, val) -> dict:
             out = fn()
             torch.cuda.synchronize()
             return (out, time.perf_counter() - t0, ops.launch_counts(),
-                    ops.launch_shapes())
+                    ops.launch_shapes(), ops.launch_routes())
         finally:
             ops.set_backend(None)
             ref.corr_ref = corr_ref
@@ -1829,6 +1916,7 @@ def phase_stream(torch, np, train, val) -> dict:
         check_sel(run[0], f"stream-pooled {what}")
     counts["stream-pooled"] = runs["kernels"][2]
     shapes["stream-pooled"] = runs["kernels"][3]
+    routes["stream-pooled"] = runs["kernels"][4]
     vs_mem = {what: first_part(runs[what][0].indices,
                                mems[mode][0].indices)
               for what, mode in (("kernels", "kernels"), ("plain", "plain"),
@@ -1845,6 +1933,7 @@ def phase_stream(torch, np, train, val) -> dict:
          in_memory_seconds={what: run[1] for what, run in mems.items()},
          select_stats={what: stats_of(run[0]) for what, run in runs.items()},
          launches={what: run[2] for what, run in runs.items()},
+         routes=routes["stream-pooled"],
          first_differing_round_vs_in_memory=vs_mem,
          stats_kernels_equal_plain=(vars(runs["kernels"][0].stats)
                                     == vars(runs["plain"][0].stats)),
@@ -1853,6 +1942,10 @@ def phase_stream(torch, np, train, val) -> dict:
     for name in ("corr", "bound_max"):
         check(counts["stream-pooled"][name] > 0,
               f"kernel {name} was not launched on the stream-pooled path")
+    route = bound_route(torch, shapes["stream-pooled"])
+    check(routes["stream-pooled"][f"bound_max/{route}"]
+          == counts["stream-pooled"]["bound_max"],
+          f"bound_max left the {route} route: {routes['stream-pooled']}")
     # With the kernels every row scores in one fixed order whatever the
     # call's shape, so streaming and in-memory OMP make the same picks.
     # The plain versions score through cuBLAS, whose order of summation
@@ -1883,7 +1976,7 @@ def phase_stream(torch, np, train, val) -> dict:
     fetch0 = proxy_lib.proxy_row_fetch(train.x, train.y, proxy0, STREAM_CHUNK)
     cbytes = PARTIAL_SLOTS * STREAM_CHUNK * streaming.ChunkCache(
         0, target.shape[0]).bytes_per_row
-    partial, part_s, part_counts, _ = timed(
+    partial, part_s, part_counts, _, _ = timed(
         None, lambda: streaming.gradmatch_streaming(
             chunks, PARTIAL_K, lam=tcfg.hp.lam, eps=tcfg.hp.eps,
             buffer_size=tcfg.stream_buffer, cache_bytes=cbytes,
@@ -1928,7 +2021,7 @@ def phase_stream(torch, np, train, val) -> dict:
               "from the scanned ones")
     emit("stream", path="row-fetch", ids=len(ids), chunk=STREAM_CHUNK,
          **fetch_bits)
-    return {"counts": counts, "shapes": shapes,
+    return {"counts": counts, "shapes": shapes, "routes": routes,
             "selection_seconds": {"gradmatch-stream": rep.selection_seconds,
                                   "stream-pooled": runs["kernels"][1]}}
 
@@ -2288,6 +2381,7 @@ def main() -> int:
     runs = (tr, ba, cr, st, lm_)
     counts = {p: c for r in runs for p, c in r["counts"].items()}
     shapes = {p: c for r in runs for p, c in r["shapes"].items()}
+    routes = {p: c for r in runs for p, c in r.get("routes", {}).items()}
     selection_seconds = {p: c for r in runs
                          for p, c in r["selection_seconds"].items()}
     kernels = []
@@ -2304,6 +2398,11 @@ def main() -> int:
             check(rec is not None, f"{name} launched on {path} at a shape "
                   "the kernels phase did not measure")
             paths[path] = {"launches": c[name], **rec}
+            by_route = {k.split("/")[1]: v
+                        for k, v in routes.get(path, {}).items()
+                        if k.startswith(name + "/")}
+            if by_route:
+                paths[path]["launches_by_route"] = by_route
             for kname, n, d, _, *batch in shapes[path]:
                 # a batched kernel's key adds (B, per-problem matrix): the
                 # paths give it a shared pool, measured at its B

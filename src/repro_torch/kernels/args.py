@@ -3,6 +3,8 @@ take raises here, before anything is launched."""
 
 from __future__ import annotations
 
+from math import gcd
+
 import torch
 
 
@@ -41,6 +43,29 @@ def check_array(name: str, t: torch.Tensor, shape: tuple,
 def stream(device: torch.device) -> int:
     """The current CUDA stream of ``device``, as the kernels take it."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+BLOCK_SMEM = 232_448    # a block's most shared memory on sm_90 (227 KB)
+SM_SMEM = 233_472       # an SM's, of which each block reserves 1 KB
+
+
+def bank_ways(row_bytes: int) -> int:
+    """How many of a warp's 32 rows, ``row_bytes`` apart in shared memory,
+    fall on the same bank when each reads its row's first element: the
+    rows repeat every 128 bytes / gcd(row_bytes, 128), four bytes a bank.
+    The tile routes read a row a thread, so this is their conflict."""
+    return max(1, gcd(row_bytes, 128) // 4)
+
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, which the launch plans read."""
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]
 
 
 def argmax_outputs(device: torch.device

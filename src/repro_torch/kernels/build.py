@@ -113,13 +113,14 @@ def _declare(lib: ctypes.CDLL) -> None:
                                            i32, i32, i32, i32, i32, i32, i32,
                                            i64, p, p, p, p]
     lib.rt_lastlayer_grad.argtypes = [i32, p, p, p, i32, p, p, i64, i64, i64,
-                                      p]
+                                      i32, i32, i32, i64, p]
     lib.rt_fl_gain_argmax.argtypes = [i32, p, p, p, i64, p, p, p, p, p]
     lib.rt_fl_gain_argmax_otf.argtypes = [i32, p, p, p, p, p, p, i64, i64, p,
                                           p, p, p, p]
     lib.rt_sqdist.argtypes = [i32, p, p, i32, p, p, i64, i64, i64, p, p]
     lib.rt_bound_max.argtypes = [i32, p, i32, p, p, p, ctypes.c_float, p, p,
-                                 i64, i64, i32, p, p, p, p, p]
+                                 i64, i64, i32, i32, i32, i32, i32, i64, p, p,
+                                 p, p, p]
     lib.rt_hidden_grad.argtypes = [i32, p, i32, p, i32, p, i32, i64, i64, p,
                                    i64, i64, i64, i64, i32, p, p, p]
     lib.rt_hidden_grad_tc.argtypes = [i32, p, i32, p, i32, p, i32, p, i64,

@@ -17,7 +17,12 @@ and of the batched kernels by (kernel, rows, d, dtype, B, per-problem).
 
 The batched kernels launch by a plan (``batched_plan``), a pure function of
 the shapes: the row-tile route (one thread a row) for a shared pool of
-width 1-96, the warp route (one warp a row) for the rest.
+width 1-96, the warp route (one warp a row) for the rest.  ``bound_max``
+launches by ``bound_max_plan``, a pure function of the shapes and the two
+addresses it aligns: the tile route (live tiles by bulk copy) or the row
+loop.  Both it and ``corr_argmax_batched`` are one device operation a
+call: a per-stream workspace, zero between calls, takes the place of a
+memset and a decode launch.
 """
 
 from __future__ import annotations
@@ -27,11 +32,14 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.args import (argmax_outputs, check_array,
-                                      check_matrix, check_vector, stream)
+from repro_torch.kernels.args import (BLOCK_SMEM, SM_SMEM, argmax_outputs,
+                                      bank_ways, check_array, check_matrix,
+                                      check_vector, sm_count, stream)
 
 launches = {"corr": 0, "corr_argmax": 0, "corr_batched": 0,
             "corr_argmax_batched": 0, "bound_max": 0}
+# bound_max's launches by route, bumped with ``launches``.
+bound_routes = {"tiles": 0, "rows": 0}
 # corr and bound_max launches by (kernel, rows, d, dtype), the batched
 # kernels' by (kernel, rows, d, dtype, B, per-problem matrix), bumped with
 # ``launches``: one path calls corr at many shapes (a buffer, a chunk, one
@@ -111,8 +119,6 @@ ROW_THREADS = 128       # a row-tile block's threads (kRowThreads)
 ROW_MAX_D = 96          # the widest row a thread keeps in registers
 ROW_MIN_ROWS = 1 << 11  # smaller pools take the warps, and so do
 ROW_MIN_PAIRS = 1 << 14  # smaller batches (PERF.md §6)
-BLOCK_SMEM = 232_448    # a block's most shared memory on sm_90 (227 KB)
-SM_SMEM = 233_472       # an SM's, of which each block reserves 1 KB
 # Blocks an SM by rows a thread, the kernel's bounds: 128 threads at up to
 # 128 registers each (one row a thread), or 170 (two rows).
 ROW_BLOCKS_PER_SM = {1: 4, 2: 3}
@@ -225,16 +231,10 @@ def tile_spans(n: int, d: int, offset: int,
     return spans
 
 
-_SMS: dict[int, int] = {}
-
-
 def _plan(dev: torch.device, n: int, d: int, b: int, argmax: bool,
           per_problem: bool = False, vec: bool = False) -> BatchedPlan:
-    if dev.index not in _SMS:
-        _SMS[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
     return batched_plan(n, d, b, argmax=argmax, per_problem=per_problem,
-                        vec=vec, sms=_SMS[dev.index])
+                        vec=vec, sms=sm_count(dev))
 
 
 # corr_argmax_batched's workspace: B key words (one 128-byte line each)
@@ -245,13 +245,20 @@ def _plan(dev: torch.device, n: int, d: int, b: int, argmax: bool,
 # graph.)
 KEY_STRIDE = 16
 _workspaces: dict[tuple[int, int], torch.Tensor] = {}
+# bound_max's workspace, per (device, stream), the same way: the key word,
+# the count word and the completion counter, one 128-byte line each
+# (csrc/bound_max.cu: kWsCount, kWsDone).
+BOUND_WS_WORDS = 48
+_bound_workspaces: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _workspace(dev: torch.device, s: int, words: int) -> torch.Tensor:
-    ws = _workspaces.get((dev.index, s))
+def _workspace(dev: torch.device, s: int, words: int,
+               pool: dict | None = None) -> torch.Tensor:
+    pool = _workspaces if pool is None else pool
+    ws = pool.get((dev.index, s))
     if ws is None or ws.numel() < words:
         ws = torch.zeros((max(words, 64),), dtype=torch.int64, device=dev)
-        _workspaces[(dev.index, s)] = ws
+        pool[(dev.index, s)] = ws
     return ws
 
 
@@ -330,9 +337,93 @@ def corr_argmax_batched(mat: torch.Tensor, w: torch.Tensor,
     return idx, val
 
 
+# -- bound_max's launch plan (csrc/bound_max.cu) ----------------------------
+# The source owns the tile layout (BoundLayout) and its constants
+# (kBoundRows, kBoundMaxTiles, kBoundMaxStages) and refuses a launch that
+# does not fit; these mirror them for the plan.
+
+BOUND_ROWS = 256        # rows a tile, one a thread (kBoundRows)
+BOUND_MAX_TILES = 64    # tiles a block walks, at most (kBoundMaxTiles)
+BOUND_MIN_ROWS = 1024   # smaller n takes the row loop, and so do
+BOUND_MIN_D = 32        # narrower rows (PERF.md §6)
+BOUND_BLOCKS_PER_SM = 8  # 256-thread blocks an SM holds
+BOUND_SMEM = BLOCK_SMEM - 1024  # its dynamic shared memory (kMaxSmem)
+ROWS_MAX_BLOCKS = 132 * 8 * 4  # the row loop's grid cap (kMaxBlocks)
+
+
+@dataclass(frozen=True)
+class BoundPlan:
+    """How ``bound_max`` launches.  ``route`` "tiles": tiles of ``rows``
+    rows, the live ones copied into a ring of ``stages`` shared-memory
+    slots (``smem`` bytes of dynamic shared memory), ``skew`` where a
+    warp's rows would share a few banks; "rows": the row loop, one
+    thread a row in device memory.  ``grid`` blocks."""
+    route: str
+    rows: int
+    stages: int
+    grid: int
+    smem: int
+    skew: bool = False
+
+
+def bound_smem(d: int, itemsize: int, stages: int) -> int:
+    """Dynamic shared memory of a tile block, the total of the kernel's
+    ``BoundLayout``: barriers, the residual (d floats), ``stages`` slots of
+    a tile's rows."""
+    return (_align128(128 + 4 * d)
+            + stages * _align128(BOUND_ROWS * d * itemsize))
+
+
+def bound_max_plan(n: int, d: int, itemsize: int, rows_addr: int,
+                   mask_addr: int, sms: int = 132,
+                   route: str | None = None) -> BoundPlan:
+    """The launch of ``bound_max`` over (n, d) rows of ``itemsize`` bytes
+    at ``rows_addr`` with the mask at ``mask_addr``, on a card of ``sms``
+    SMs; ``route`` forces one route (ValueError where the tiles cannot
+    take the call).
+
+    The tile route takes n >= ``BOUND_MIN_ROWS``, d >= ``BOUND_MIN_D`` and
+    both addresses on a 16-byte boundary (the tile's bulk copy and the
+    mask's 16-byte loads): one slot a block where every tile gets its own
+    block in one wave, as at the streaming arenas, else a persistent wave
+    with a ring of two and at most ``BOUND_MAX_TILES`` tiles a block; a
+    skewed column walk where a warp's rows share banks (``bank_ways`` >= 4).
+    Everything else takes the row loop.  On an H100 (PERF.md §6) the row
+    loop, one device operation as well, is the faster under 32
+    columns (8.2 against 9.0 us at the (88 064, 10) arena), where a warp's
+    32 rows span at most 2 KB; the tiles from 32 (10.8 against 14.2 us at
+    (88 064, 65), from n = 1 024)."""
+    tiles_ok = (d >= 1 and n >= 1 and rows_addr % 16 == 0
+                and mask_addr % 16 == 0
+                and bound_smem(d, itemsize, 1) <= BOUND_SMEM)
+    if route == "tiles" and not tiles_ok:
+        raise ValueError(f"bound_max: the tile route cannot take n {n}, d "
+                         f"{d} at addresses {rows_addr:#x} / {mask_addr:#x}")
+    if route not in (None, "tiles", "rows"):
+        raise ValueError(f"bound_max: no route {route!r}")
+    if route == "tiles" or (route is None and tiles_ok
+                            and n >= BOUND_MIN_ROWS and d >= BOUND_MIN_D):
+        tiles = -(-n // BOUND_ROWS)
+
+        def per_sm(smem):
+            return min(SM_SMEM // (smem + 1024), BOUND_BLOCKS_PER_SM)
+
+        skew = bank_ways(d * itemsize) >= 4
+        smem = bound_smem(d, itemsize, 1)
+        if tiles <= sms * per_sm(smem):
+            return BoundPlan("tiles", BOUND_ROWS, 1, tiles, smem, skew)
+        smem2 = bound_smem(d, itemsize, 2)
+        stages, smem = (2, smem2) if smem2 <= BOUND_SMEM else (1, smem)
+        grid = min(tiles, max(sms * per_sm(smem),
+                              -(-tiles // BOUND_MAX_TILES)))
+        return BoundPlan("tiles", BOUND_ROWS, stages, grid, smem, skew)
+    grid = max(1, min(-(-n // BOUND_ROWS), ROWS_MAX_BLOCKS))
+    return BoundPlan("rows", BOUND_ROWS, 0, grid, 0)
+
+
 def bound_max(rows: torch.Tensor, norms: torch.Tensor, errn: torch.Tensor,
               residual: torch.Tensor, acc, thresh, mask: torch.Tensor,
-              absolute: bool = False
+              absolute: bool = False, *, route: str | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused interval-bound scan of a compressed row cache; the contract is
     ``ref.bound_max_ref``'s: (max u f32 (), its index i32 (), count i32 ()).
@@ -341,6 +432,10 @@ def bound_max(rows: torch.Tensor, norms: torch.Tensor, errn: torch.Tensor,
     bool.  ``acc`` is a Python float (a tensor is read on the host);
     ``thresh`` a float or a 0-d f32 tensor on the rows' device, which the
     kernel reads in place, so a device threshold costs no host sync.
+
+    A CUDA call launches by ``bound_max_plan`` (``route`` forces one, for
+    measurement): one device operation, whose last block writes the three
+    outputs and returns the stream's workspace to zero.
     """
     if not rows.is_cuda:
         return ref.bound_max_ref(rows, norms, errn, residual, acc, thresh,
@@ -360,13 +455,22 @@ def bound_max(rows: torch.Tensor, norms: torch.Tensor, errn: torch.Tensor,
         raise ValueError("thresh must be one float32 on the rows' device, "
                          f"got {thresh.dtype} {tuple(thresh.shape)} on "
                          f"{thresh.device}")
-    scratch, idx, val = argmax_outputs(dev)
+    plan = bound_max_plan(n, d, rows.element_size(), rows.data_ptr(),
+                          mask.data_ptr(), sm_count(dev), route)
+    idx = torch.empty((), dtype=torch.int32, device=dev)
+    val = torch.empty((), dtype=torch.float32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
+    s = stream(dev)
+    ws = _workspace(dev, s, BOUND_WS_WORDS, _bound_workspaces)
     code = build.lib().rt_bound_max(
         dev.index, rows.data_ptr(), _DTYPES[rows.dtype], norms.data_ptr(),
         errn.data_ptr(), residual.data_ptr(), float(acc), thresh.data_ptr(),
-        mask.data_ptr(), n, d, int(absolute), scratch.data_ptr(),
-        idx.data_ptr(), val.data_ptr(), count.data_ptr(), stream(dev))
+        mask.data_ptr(), n, d, int(absolute), int(plan.route == "tiles"),
+        plan.rows, plan.stages, int(plan.skew), plan.grid, ws.data_ptr(),
+        idx.data_ptr(), val.data_ptr(), count.data_ptr(), s)
+    if code != 0:
+        _bound_workspaces.pop((dev.index, s), None)
     build.check(code, "bound_max")
     _count("bound_max", rows)
+    bound_routes[plan.route] += 1
     return val, idx, count

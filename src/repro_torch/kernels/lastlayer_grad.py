@@ -7,28 +7,139 @@ The CUDA sources are ``csrc/lastlayer_grad.cu``, and for the LM head
 kernels ``repro/kernels/lastlayer_grad.py:lastlayer_grad`` and
 ``:hidden_grad_fused``.  CUDA tensors go to a kernel (or raise), CPU
 tensors to the plain version in ``ref.py``.  ``launches`` counts kernel
-launches, and nothing else.
+launches, and nothing else.  ``lastlayer_grad`` launches by
+``lastlayer_plan``, a pure function of the shapes and the addresses: the
+tile route (rows in flight by bulk copy) or the warp route.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.args import check_matrix, check_vector, stream
+from repro_torch.kernels.args import (BLOCK_SMEM, SM_SMEM, bank_ways,
+                                      check_matrix, check_vector, sm_count,
+                                      stream)
 
 launches = {"lastlayer_grad": 0, "hidden_grad": 0, "hidden_grad_tc": 0}
+# lastlayer_grad's launches by route, bumped with ``launches``.
+lastlayer_routes = {"tiles": 0, "warps": 0}
+
+# -- lastlayer_grad's launch plan (csrc/lastlayer_grad.cu) -------------------
+# The source owns the tile layout (TileLayout) and its constants
+# (kTileThreads, kTileMaxRows, kTileMaxC, kTileMaxStages) and refuses a
+# launch that does not fit; these mirror them for the plan.
+TILE_THREADS = 128      # a tile block's threads (kTileThreads)
+TILE_MAX_ROWS = 128     # rows a tile, one softmax a thread (kTileMaxRows)
+TILE_MAX_C = 32         # classes, one term a lane (kTileMaxC)
+TILE_MIN_ROWS = 8192    # smaller n takes the warps (PERF.md §6)
+TILE_BLOCKS_PER_SM = 8  # 128-thread blocks an SM holds
+WARP_ROWS = 8           # the warp route: rows (warps) a block
+WARP_MAX_BLOCKS = 132 * 8 * 4   # its grid cap (kMaxBlocks)
+
+
+@dataclass(frozen=True)
+class LastlayerPlan:
+    """How ``lastlayer_grad`` launches.  ``route`` "tiles": tiles of
+    ``rows`` rows loaded by bulk copy into a ring of ``stages``
+    shared-memory slots (``smem`` bytes of dynamic shared memory), one
+    thread a row's softmax; "warps": one warp a row.  ``grid`` blocks."""
+    route: str
+    rows: int
+    stages: int
+    grid: int
+    smem: int
+
+
+def _align128(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+def tile_smem(dh: int, nc: int, label_bytes: int, rows: int,
+              stages: int) -> int:
+    """Dynamic shared memory of a tile block, the total of the kernel's
+    ``TileLayout``: barriers, then ``stages`` slots of a tile's hidden
+    rows, logits, labels and own, each part 128-aligned."""
+    slot = (_align128(rows * dh * 4) + _align128(rows * nc * 4)
+            + _align128(rows * label_bytes) + _align128(rows * 4))
+    return 128 + stages * slot
+
+
+def tile_rows(dh: int, nc: int, label_bytes: int, stages: int) -> int:
+    """The most rows a tile (a multiple of 4, at most ``TILE_MAX_ROWS``)
+    whose layout fits a block and whose hidden part stays below 2^16
+    elements; 0 if not even 4 rows do."""
+    rows = TILE_MAX_ROWS
+    while rows >= 4 and (tile_smem(dh, nc, label_bytes, rows, stages)
+                         > BLOCK_SMEM or rows * dh >= 1 << 16):
+        rows -= 4
+    return max(rows, 0)
+
+
+def lastlayer_plan(n: int, dh: int, nc: int, addrs, sms: int = 132,
+                   label_bytes: int = 8, route: str | None = None
+                   ) -> LastlayerPlan:
+    """The launch of ``lastlayer_grad`` on n rows of d_h hidden units and
+    C classes, with ``label_bytes``-byte labels, whose operands (hidden,
+    logits, labels, resid, hgrad) start at ``addrs``, on a card of ``sms``
+    SMs; ``route`` forces one route (ValueError where the tiles cannot
+    take the call).
+
+    The tile route takes n >= ``TILE_MIN_ROWS``, 1 <= C <= 32 whose
+    logits rows do not put 16 or more of a warp's rows on one bank (C 16
+    and 32: a thread reads its row's logits), d_h >= 1 and every address
+    on a 16-byte boundary: one slot a block where every tile gets its own
+    block in one wave (the main path's 45 000 rows: 352 tiles of 128
+    rows), else a persistent wave with a ring of two.  Everything else
+    takes the warp route.  On an H100 (PERF.md §6) the
+    warps are the faster under 8 192 rows (6.2 against 7.5 us at the
+    stream path's 1 024) and at C 16 and 32 (19.5 against 20.6, 22.1
+    against 49.2 us at 45 000 rows); the tiles elsewhere (12.3 against
+    19.3 us at the main path's (45 000, 64, 10))."""
+    rows1 = tile_rows(dh, nc, label_bytes, 1)
+    tiles_ok = (n >= 1 and dh >= 1 and 1 <= nc <= TILE_MAX_C and rows1 >= 4
+                and all(a % 16 == 0 for a in addrs))
+    if route not in (None, "tiles", "warps"):
+        raise ValueError(f"lastlayer_grad: no route {route!r}")
+    if route == "tiles" and not tiles_ok:
+        raise ValueError(f"lastlayer_grad: the tile route cannot take "
+                         f"({n}, {dh}, {nc}) at {[hex(a) for a in addrs]}")
+    if route == "tiles" or (route is None and tiles_ok
+                            and n >= TILE_MIN_ROWS
+                            and bank_ways(4 * nc) < 16):
+        def per_sm(smem):
+            return min(SM_SMEM // (smem + 1024), TILE_BLOCKS_PER_SM)
+
+        # One wave of one-slot blocks, with fewer rows a tile where 128
+        # would leave SMs idle (a block's copy, softmax and stores are its
+        # latency) ...
+        rows = min(rows1, max(4, -(-(-(-n // sms)) // 4) * 4))
+        smem = tile_smem(dh, nc, label_bytes, rows, 1)
+        if -(-n // rows) <= sms * per_sm(smem):
+            return LastlayerPlan("tiles", rows, 1, -(-n // rows), smem)
+        # ... else a persistent wave, a ring of two slots where two fit.
+        stages = 2 if tile_rows(dh, nc, label_bytes, 2) >= 4 else 1
+        rows = tile_rows(dh, nc, label_bytes, stages)
+        smem = tile_smem(dh, nc, label_bytes, rows, stages)
+        return LastlayerPlan("tiles", rows, stages,
+                             min(-(-n // rows), sms * per_sm(smem)), smem)
+    grid = max(1, min(-(-n // WARP_ROWS), WARP_MAX_BLOCKS))
+    return LastlayerPlan("warps", WARP_ROWS, 0, grid, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def lastlayer_grad(hidden: torch.Tensor, logits: torch.Tensor,
-                   labels: torch.Tensor
+                   labels: torch.Tensor, *, route: str | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """(resid (n, C), hgrad (n, d_h)) for a classification head.
 
     hidden (n, d_h) f32, logits (n, C) f32, labels (n,) int32/int64 with
-    values in [0, C).
+    values in [0, C).  A CUDA call launches by ``lastlayer_plan``
+    (``route`` forces one, for measurement); both routes give the same
+    bits.
     """
     if not hidden.is_cuda:
         return ref.lastlayer_grad_ref(hidden, logits, labels)
@@ -57,12 +168,17 @@ def lastlayer_grad(hidden: torch.Tensor, logits: torch.Tensor,
     nc = logits.shape[1]
     resid = torch.empty((n, nc), dtype=torch.float32, device=dev)
     hgrad = torch.empty((n, dh), dtype=torch.float32, device=dev)
+    operands = (hidden, logits, labels, resid, hgrad)
+    plan = lastlayer_plan(n, dh, nc, [t.data_ptr() for t in operands],
+                          sm_count(dev), labels.element_size(), route)
     code = build.lib().rt_lastlayer_grad(
         dev.index, hidden.data_ptr(), logits.data_ptr(), labels.data_ptr(),
         int(labels.dtype == torch.int64), resid.data_ptr(), hgrad.data_ptr(),
-        n, dh, nc, torch.cuda.current_stream(dev).cuda_stream)
+        n, dh, nc, int(plan.route == "tiles"), plan.rows, plan.stages,
+        plan.grid, stream(dev))
     build.check(code, "lastlayer_grad")
     launches["lastlayer_grad"] += 1
+    lastlayer_routes[plan.route] += 1
     return resid, hgrad
 
 

@@ -51,8 +51,19 @@ def launch_shapes() -> dict[tuple, int]:
     return dict(corr_kernel.shapes)
 
 
+def launch_routes() -> dict[str, int]:
+    """``lastlayer_grad`` and ``bound_max`` launches since the last
+    ``reset_launch_counts``, by route ("kernel/route")."""
+    return {f"{kernel}/{route}": n
+            for kernel, routes in (("lastlayer_grad",
+                                    llg_kernel.lastlayer_routes),
+                                   ("bound_max", corr_kernel.bound_routes))
+            for route, n in routes.items()}
+
+
 def reset_launch_counts() -> None:
-    for counts in _COUNTERS:
+    for counts in _COUNTERS + (llg_kernel.lastlayer_routes,
+                               corr_kernel.bound_routes):
         for name in counts:
             counts[name] = 0
     corr_kernel.shapes.clear()

@@ -887,3 +887,279 @@ def test_batched_omp_on_the_card_equals_single_solves(dev):
         assert torch.equal(idx[c * 30:(c + 1) * 30], si)
         np.testing.assert_allclose(w[c * 30:(c + 1) * 30].cpu().numpy(),
                                    sw.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# lastlayer_grad and bound_max: the tile routes against the kernels they
+# replace (the warps, the row loop), bit for bit
+# ---------------------------------------------------------------------------
+
+def _one_device_op(fn):
+    """The device operations one call of ``fn`` makes (``torch.profiler``;
+    a trace with no record at all lost them and is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops_ = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops_:
+            break
+    return ops_
+
+
+def _llg_case(dev, n, dh, nc, label_dtype, seed, outside=False):
+    rng = np.random.default_rng(seed)
+    h = _t(np.maximum(rng.standard_normal((n, dh)), 0).astype(np.float32),
+           dev)
+    z = _t((3 * rng.standard_normal((n, nc))).astype(np.float32), dev)
+    y = rng.integers(0, nc, n)
+    if outside:                         # labels outside [0, C): no one-hot
+        y[::7] = -1
+        y[3::7] = nc
+    return h, z, _t(y, dev).to(getattr(torch, label_dtype))
+
+
+def _llg_routes_equal(h, z, y):
+    tiles = llg_kernel.lastlayer_grad(h, z, y, route="tiles")
+    warps = llg_kernel.lastlayer_grad(h, z, y, route="warps")
+    torch.cuda.synchronize()
+    assert torch.equal(tiles[0], warps[0]) and torch.equal(tiles[1], warps[1])
+    return tiles
+
+
+# (n, d_h, C): the main path, the stream path's chunk, a tail tile of one
+# row and of 127, n below one tile, odd widths, C from 1 to 32.
+LLG_SHAPES = [(45000, 64, 10), (1024, 64, 10), (4097, 64, 10),
+              (4223, 65, 10), (5, 64, 10), (100, 84, 32), (3000, 1, 1),
+              (2001, 7, 3), (513, 300, 17)]
+
+
+@pytest.mark.parametrize("n,dh,nc", LLG_SHAPES)
+@pytest.mark.parametrize("label_dtype", ["int32", "int64"])
+def test_lastlayer_grad_tiles_equal_warps(dev, n, dh, nc, label_dtype):
+    """The tile route gives the warp route's bits, on tail tiles, below
+    one tile, at every C it takes, with either label type; and both stay
+    within the plain version's tolerance."""
+    h, z, y = _llg_case(dev, n, dh, nc, label_dtype, n + dh + nc)
+    resid, hgrad = _llg_routes_equal(h, z, y)
+    rr, rh = ref.lastlayer_grad_ref(h, z, y)
+    assert torch.allclose(resid, rr, rtol=1e-5, atol=1e-6)
+    assert torch.allclose(hgrad, rh, rtol=1e-5, atol=1e-6)
+
+
+def test_lastlayer_grad_tiles_labels_outside_and_the_ring(dev, monkeypatch):
+    """Labels outside [0, C) (no one-hot, hgrad 0) on both routes; then a
+    ring of two slots in a persistent wave (one block an SM forced), and
+    n past one wave, each equal to the warps."""
+    h, z, y = _llg_case(dev, 45000, 64, 10, "int64", 3, outside=True)
+    _llg_routes_equal(h, z, y)
+    monkeypatch.setattr(llg_kernel, "TILE_BLOCKS_PER_SM", 1)
+    plan = llg_kernel.lastlayer_plan(45000, 64, 10, [0] * 5,
+                                     torch.cuda.get_device_properties(
+                                         dev).multi_processor_count)
+    assert plan.stages == 2 and plan.grid < -(-45000 // plan.rows)
+    _llg_routes_equal(h, z, y)
+    monkeypatch.undo()
+    h, z, y = _llg_case(dev, 100_003, 64, 10, "int32", 4)
+    assert llg_kernel.lastlayer_plan(
+        100_003, 64, 10, [0] * 5, 132, 4).stages == 2
+    _llg_routes_equal(h, z, y)
+
+
+def test_lastlayer_grad_rows_independent_of_position(dev):
+    """A row's bits depend on that row alone: the streaming engine's
+    1 024-row chunks (either route) equal the whole call's rows."""
+    h, z, y = _llg_case(dev, 45000, 64, 10, "int64", 5)
+    resid, hgrad = llg_kernel.lastlayer_grad(h, z, y)
+    for lo in (0, 1024, 43 * 1024):
+        hi = min(lo + 1024, 45000)
+        for route in ("tiles", "warps"):
+            r, g = llg_kernel.lastlayer_grad(h[lo:hi].contiguous(),
+                                             z[lo:hi].contiguous(),
+                                             y[lo:hi].contiguous(),
+                                             route=route)
+            assert torch.equal(r, resid[lo:hi]) and torch.equal(g,
+                                                                hgrad[lo:hi])
+
+
+def test_lastlayer_grad_unaligned_or_wide_takes_the_warps(dev):
+    """logits[1:] of an (n, 10) matrix starts 40 bytes in: the plan sends
+    it to the warps, and forcing the tiles raises; so does C = 37."""
+    h, z, y = _llg_case(dev, 4097, 64, 10, "int64", 6)
+    zv = z[1:]
+    assert zv.is_contiguous() and zv.data_ptr() % 16 == 8
+    before = dict(llg_kernel.lastlayer_routes)
+    got = llg_kernel.lastlayer_grad(h[1:], zv, y[1:])
+    assert llg_kernel.lastlayer_routes["warps"] == before["warps"] + 1
+    want = llg_kernel.lastlayer_grad(h[1:], zv.contiguous().clone(), y[1:],
+                                     route="warps")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="tile route"):
+        llg_kernel.lastlayer_grad(h[1:], zv, y[1:], route="tiles")
+    h, z, y = _llg_case(dev, 4097, 64, 37, "int64", 7)
+    before = dict(llg_kernel.lastlayer_routes)
+    llg_kernel.lastlayer_grad(h, z, y)
+    assert llg_kernel.lastlayer_routes["warps"] == before["warps"] + 1
+    with pytest.raises(ValueError, match="tile route"):
+        llg_kernel.lastlayer_grad(h, z, y, route="tiles")
+
+
+def test_lastlayer_grad_one_device_operation_a_call(dev):
+    h, z, y = _llg_case(dev, 45000, 64, 10, "int64", 8)
+    for route in ("tiles", "warps"):
+        ops_ = _one_device_op(
+            lambda: llg_kernel.lastlayer_grad(h, z, y, route=route))
+        assert len(ops_) == 1, ops_
+
+
+def _arena_mask(dev, n, used, seed):
+    """An arena's mask: the first ``used`` rows cached with a tenth taken,
+    the rest empty slots."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros(n, dtype=bool)
+    m[:used] = rng.random(used) > 0.1
+    return _t(m, dev)
+
+
+def _bound_routes_equal(rows, norms, errn, r, acc, th, mask, absolute):
+    tiles = corr_kernel.bound_max(rows, norms, errn, r, acc, th, mask,
+                                  absolute, route="tiles")
+    loop = corr_kernel.bound_max(rows, norms, errn, r, acc, th, mask,
+                                 absolute, route="rows")
+    torch.cuda.synchronize()
+    for a, b in zip(tiles, loop):
+        assert torch.equal(a, b), (tiles, loop)
+    return tiles
+
+
+# (n, d, dtype, used rows): the two arenas with their empty halves, a tail
+# tile of one row and of 200, n below one tile, f32 rows, and widths whose
+# stride takes the skewed column walk (d 64 bf16, d 32 f32).
+BOUND_SHAPES = [(88064, 10, "bfloat16", 45056), (86016, 65, "bfloat16",
+                                                 45056),
+                (4097, 10, "bfloat16", 4097), (4296, 65, "bfloat16", 3000),
+                (100, 65, "bfloat16", 100), (4096, 65, "float32", 4096),
+                (1000, 3, "float32", 700), (4096, 64, "bfloat16", 4096),
+                (5000, 32, "float32", 3000)]
+
+
+@pytest.mark.parametrize("n,d,dtype,used", BOUND_SHAPES)
+@pytest.mark.parametrize("absolute", [False, True])
+def test_bound_max_tiles_equal_the_row_loop(dev, n, d, dtype, used,
+                                            absolute):
+    """The tile route's (val, idx, count) equal the row loop's bit for
+    bit at thresholds -inf, +inf and mid-gap, and stay within the plain
+    version's tolerance; the workspace reads zero after every call."""
+    rows, norms, errn, r, acc, _ = _bound_case(n, d, n + d, dev, dtype=dtype)
+    mask = _arena_mask(dev, n, used, n + 1)
+    s = rows.float() @ r
+    s = s.abs() if absolute else s
+    u = s + (errn + acc * norms) * torch.sqrt((r * r).sum())
+    srt = torch.sort(u[mask]).values
+    mid = float((srt[len(srt) // 2] + srt[len(srt) // 2 - 1]) / 2)
+    for thresh in (float("-inf"), float("inf"), mid):
+        th = torch.full((), thresh, device=dev)
+        got = _bound_routes_equal(rows, norms, errn, r, acc, th, mask,
+                                  absolute)
+        want = ref.bound_max_ref(rows, norms, errn, r, acc, th, mask,
+                                 absolute=absolute)
+        _check_bound(got, want, u, mask, thresh)
+    key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    assert int(corr_kernel._bound_workspaces[key].abs().sum()) == 0
+
+
+def test_bound_max_tiles_masks_ties_and_the_ring(dev, monkeypatch):
+    """All masked, one dead tile among live ones, planted ties (the lowest
+    index wins on both routes), then a ring of two slots in a persistent
+    wave (one block an SM forced): each equal to the row loop."""
+    n, d = 88064, 10
+    rows, norms, errn, r, acc, _ = _bound_case(n, d, 11, dev)
+    none = torch.zeros((n,), dtype=torch.bool, device=dev)
+    v, i, c = _bound_routes_equal(rows, norms, errn, r, acc, 0.0, none,
+                                  False)
+    assert (float(v), int(i), int(c)) == (float("-inf"), 0, 0)
+    one_dead = _arena_mask(dev, n, n, 12)
+    one_dead[256 * 5:256 * 6] = False   # tile 5 has no live row
+    _bound_routes_equal(rows, norms, errn, r, acc, 0.0, one_dead, True)
+    dup, dn, de = rows.clone(), norms.clone(), errn.clone()
+    dup[1::2], dn[1::2], de[1::2] = dup[::2], dn[::2], de[::2]
+    every = torch.ones_like(none)
+    _, i, c = _bound_routes_equal(dup, dn, de, r, acc, float("-inf"), every,
+                                  True)
+    assert int(i) % 2 == 0 and int(c) == n
+    monkeypatch.setattr(corr_kernel, "BOUND_BLOCKS_PER_SM", 1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = corr_kernel.bound_max_plan(n, d, 2, 0, 0, sms, "tiles")
+    assert plan.stages == 2 and plan.grid < -(-n // 256)
+    mask = _arena_mask(dev, n, 45056, 13)
+    for absolute in (False, True):
+        _bound_routes_equal(rows, norms, errn, r, acc, 0.0, mask, absolute)
+        _bound_routes_equal(rows, norms, errn, r, acc, 0.0, one_dead,
+                            absolute)
+
+
+def test_bound_max_unaligned_rows_take_the_row_loop(dev):
+    """rows[1:] of a bf16 (n, 65) arena starts 130 bytes in: the plan
+    sends it to the row loop, and forcing the tiles raises."""
+    n, d = 8193, 65
+    rows, norms, errn, r, acc, _ = _bound_case(n, d, 14, dev)
+    mask = _arena_mask(dev, n, n, 15)
+    view = rows[1:]
+    assert view.data_ptr() % 16 == 2
+    before = dict(corr_kernel.bound_routes)
+    got = corr_kernel.bound_max(view, norms[1:], errn[1:], r, acc, 0.0,
+                                mask[1:].clone())
+    assert corr_kernel.bound_routes["rows"] == before["rows"] + 1
+    want = corr_kernel.bound_max(view.clone(), norms[1:], errn[1:], r, acc,
+                                 0.0, mask[1:].clone(), route="tiles")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="tile route"):
+        corr_kernel.bound_max(view, norms[1:], errn[1:], r, acc, 0.0,
+                              mask[1:].clone(), route="tiles")
+
+
+def test_bound_max_one_device_operation_and_its_workspace(dev, monkeypatch):
+    """One device operation a call on both routes (four before: two
+    memsets, the kernel, a decode launch); a workspace per stream, zero
+    after every call; a refused launch drops it, and the next call starts
+    from zeros."""
+    n, d = 86016, 65
+    rows, norms, errn, r, acc, _ = _bound_case(n, d, 16, dev)
+    mask = _arena_mask(dev, n, 45056, 17)
+    th = torch.zeros((), device=dev)
+    for route in ("tiles", "rows"):
+        ops_ = _one_device_op(lambda: corr_kernel.bound_max(
+            rows, norms, errn, r, acc, th, mask, route=route))
+        assert len(ops_) == 1, ops_
+    want = corr_kernel.bound_max(rows, norms, errn, r, acc, th, mask)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(3):
+        for s in (s1, s2):
+            with torch.cuda.stream(s):
+                got.append(corr_kernel.bound_max(rows, norms, errn, r, acc,
+                                                 th, mask))
+    torch.cuda.synchronize()
+    for g in got:
+        assert all(torch.equal(a, b) for a, b in zip(g, want))
+    di = dev.index or 0
+    for s in (s1, s2):
+        assert int(corr_kernel._bound_workspaces[
+            (di, s.cuda_stream)].abs().sum()) == 0
+    key = (di, torch.cuda.current_stream(dev).cuda_stream)
+    corr_kernel._bound_workspaces[key].fill_(-1)
+    good = corr_kernel.bound_max_plan
+    monkeypatch.setattr(corr_kernel, "bound_max_plan", lambda *a, **k: replace(
+        good(*a, **k), stages=3))
+    with pytest.raises(RuntimeError, match="bound_max"):
+        corr_kernel.bound_max(rows, norms, errn, r, acc, th, mask)
+    assert key not in corr_kernel._bound_workspaces
+    monkeypatch.setattr(corr_kernel, "bound_max_plan", good)
+    got = corr_kernel.bound_max(rows, norms, errn, r, acc, th, mask)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
