@@ -16,7 +16,11 @@ Phases, one JSON line each:
               with its time, its plain version's time, the time of the
               nearest single PyTorch call where there is one, and its bound;
               the batched kernels also against B launches of the single
-              ones (the same bits) and timed beside them;
+              ones (the same bits) and timed beside them; a kernel with
+              two routes (``lastlayer_grad``, ``bound_max``,
+              ``corr_argmax``: the same bits; ``fl_gain_argmax_otf``: the
+              tensor cores and the FFMA tiles, each against an f64 scan
+              at the CRAIG paths' shapes) on each, timed;
   4. trainer  ``mlp()`` at full width on 45 000 rows: per-class GRAD-MATCH
               (budget 0.1, 2 epochs, R = 1) on the batched engine
               (``corr_batched``, ``corr_argmax_batched``), then one
@@ -91,8 +95,10 @@ cost is not in it (the L2 cache stays warm, as in the OMP round loop that
 re-reads the same pool).  ``bound_ms`` is the larger of the bytes the call
 must move (each input read once, each output written once) over the card's
 published memory bandwidth and its operations over the card's published
-rate for their type: f32 outside the tensor cores, and for
-``hidden_grad_tc`` its two bf16 passes at the dense bf16 tensor-core rate.
+rate for their type: f32 outside the tensor cores, for ``hidden_grad_tc``
+its two bf16 passes at the dense bf16 tensor-core rate, and for
+``fl_gain_argmax_otf_tc`` its three TF32 passes at the dense TF32 rate or
+its epilogue's f32 operations, whichever take longer.
 Where the work depends on the data (a masked argmax, ``bound_max``'s
 masked-in rows), the bytes and operations are the ones this run's masks
 need.
@@ -116,7 +122,7 @@ SRC = ROOT / "src"
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
          "H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
 # Published dense bf16 tensor-core FLOP/s (the data sheets' sparse rates
-# halved).
+# halved); the dense TF32 rate is half of it on each of these cards.
 BF16_PEAKS = {"H100 PCIe": 756e12, "H100 NVL": 835e12, "H100": 989e12,
               "H200": 989e12}
 
@@ -162,6 +168,8 @@ KERNEL_SOURCES = {
                        "src/repro/kernels/fl_gain.py:85"),
     "fl_gain_argmax_otf": ("src/repro_torch/kernels/csrc/fl_gain.cu",
                            "src/repro/kernels/fl_gain.py:174"),
+    "fl_gain_argmax_otf_tc": ("src/repro_torch/kernels/csrc/fl_gain_tc.cu",
+                              "src/repro/kernels/fl_gain.py:174"),
     "sqdist": ("src/repro_torch/kernels/csrc/sqdist.cu",
                "src/repro/kernels/sqdist.py:51"),
     "bound_max": ("src/repro_torch/kernels/csrc/bound_max.cu",
@@ -183,7 +191,8 @@ MAIN_PATH = {"corr": "gradmatch-pb", "corr_argmax": "gradmatch-pb",
              "corr_batched": "gradmatch", "corr_argmax_batched": "gradmatch",
              "lastlayer_grad": "gradmatch",
              "fl_gain_argmax": "craig-resident",
-             "fl_gain_argmax_otf": "craig-lazy", "sqdist": "craig-resident",
+             "fl_gain_argmax_otf": "craig-lazy",
+             "fl_gain_argmax_otf_tc": "craig-lazy", "sqdist": "craig-resident",
              "bound_max": "gradmatch-stream", "hidden_grad": "lm",
              "hidden_grad_tc": "lm"}
 
@@ -300,6 +309,7 @@ def phase_build() -> None:
          nvcc_seconds=build.build_seconds,
          load_seconds=time.perf_counter() - t0,
          ptxas_hidden_grad_tc=ptxas_report(log, "hidden_grad_tc_kernel"),
+         ptxas_fl_gain_tc=ptxas_report(log, "fl_gain_tc_kernel"),
          ptxas_corr_batched_rows=ptxas_report(log, "row_tiles_kernel"),
          ptxas_corr_batched_warps=ptxas_report(log, "corr_batched_kernel"),
          ptxas_corr_argmax_batched_warps=ptxas_report(
@@ -424,6 +434,10 @@ def phase_kernels(torch, np, card: dict) -> dict:
     v10 = t(rng.standard_normal(10).astype(np.float32))
     cases.append(("glister", g10, -v10, zeros, t(rng.random(ROWS) < 0.9),
                   False, ("glister",)))
+    # the same shape from a pool view off a 16-byte boundary
+    buf = t(rng.standard_normal(ROWS * 10 + 1).astype(np.float32))
+    cases.append(("unaligned", buf[1:].view(ROWS, 10), -v10, zeros,
+                  t(rng.random(ROWS) < 0.9), False, ()))
     dup = g.clone()
     dup[1::2] = dup[::2]
     every = torch.ones((ROWS,), dtype=torch.bool, device=dev)
@@ -431,9 +445,32 @@ def phase_kernels(torch, np, card: dict) -> dict:
     cases.append(("all-masked", g, -r, zeros,
                   torch.zeros((ROWS,), dtype=torch.bool, device=dev), False,
                   ()))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for what, c, wv, base, mask, absolute, paths in cases:
         err = argmax_case(c, wv, base, mask, absolute, what)
         n, p = c.shape
+        # Each route the plan can give the shape, against the plan's bit for
+        # bit, and timed.
+        plan = asdict(corr_k.corr_argmax_plan(n, p, c.data_ptr(), sms))
+        want = corr_k.corr_argmax(c, wv, base, mask, absolute=absolute)
+        route_ms = {}
+        for route in ("rows", "warps"):
+            try:
+                corr_k.corr_argmax_plan(n, p, c.data_ptr(), sms, route)
+            except ValueError:
+                continue            # a shape the row tiles do not take
+            got = corr_k.corr_argmax(c, wv, base, mask, absolute=absolute,
+                                     route=route)
+            check(torch.equal(got[0], want[0])
+                  and torch.equal(got[1], want[1]),
+                  f"corr_argmax {what}: the {route} route is not the "
+                  f"{plan['route']} route's bits")
+            route_ms[route] = device_ms(torch, lambda: corr_k.corr_argmax(
+                c, wv, base, mask, absolute=absolute, route=route))
+        ops = device_ops(torch, lambda: corr_k.corr_argmax(
+            c, wv, base, mask, absolute=absolute))
+        check(ops == 1, f"corr_argmax {what}: {ops} device operations a "
+              "call")
         ms = device_ms(torch, lambda: corr_k.corr_argmax(
             c, wv, base, mask, absolute=absolute))
         plain = device_ms(torch, lambda: ref.corr_argmax_ref(
@@ -444,18 +481,18 @@ def phase_kernels(torch, np, card: dict) -> dict:
         b, by = bound(4 * p * live + 4 * p + 4 * live + n + 8, 2 * p * live)
         emit("kernels", kernel="corr_argmax", case=what, shape=[n, p],
              absolute=absolute, max_abs_err=err, ms=ms, plain_ms=plain,
-             bound_ms=b)
+             bound_ms=b, route_ms=route_ms, plan=plan, device_ops=ops)
         for path in paths:
             records["corr_argmax"][path] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=None, shape=[n, p])
+                bound_by=by, library_ms=None, shape=[n, p],
+                route_ms=route_ms, plan=plan, device_ops=ops)
     gi, _ = corr_k.corr_argmax(dup, -r, zeros, every, absolute=True)
     check(int(gi) % 2 == 0, "corr_argmax: a tie did not go to the lower row")
 
     # -- lastlayer_grad: both paths n = 45 000, d_h = 64, C = 10; the stream
     #    path's chunks n = 1 024; a tail tile; C = 37 (the warps only).  Each
     #    route the plan can give the shape, against the other bit for bit.
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n, dh, nc, ldt, paths in ((ROWS, 64, 10, "int64",
                                    PATHS + CRAIG_PATHS),
                                   (ROWS, 64, 10, "int32", ()),
@@ -628,11 +665,27 @@ def phase_kernels_fl(torch, np, card: dict, records: dict) -> None:
     del sim
 
     # -- fl_gain_argmax_otf: the two proxies the trainer feeds it, a tenth
-    #    of the rows invalid; then ragged n and all masked -----------------
+    #    of the rows invalid; then ragged n and all masked.  Each call at the
+    #    plan's route; at the two paths' shapes both routes, each against an
+    #    f64 scan of the same inputs, timed. -----------------------------
     # (No n = 1 case: a lone column's gain is its own diagonal term
     # sqrt(2|g|^2 - 2 g.g), rounding noise of ~sqrt(eps)|g| that the
-    # kernel's FFMA dot and cuBLAS round differently; the card tests hold
-    # it at the reference's on-the-fly tolerance, 1e-3.)
+    # kernels' dots and cuBLAS round differently; the card tests hold it
+    # at the reference's on-the-fly tolerance, 1e-3.)
+    def gains64(g, sqn, cover, rok, lm, block=2048):
+        """The on-the-fly gains of the same f32 inputs, in f64."""
+        g64, s64 = g.double(), sqn.double()
+        c64, ok = cover.double(), rok.double()
+        out = torch.zeros((g.shape[0],), dtype=torch.float64, device=dev)
+        for lo in range(0, g.shape[0], block):
+            d2 = (s64[lo:lo + block, None] + s64[None, :]
+                  - 2.0 * (g64[lo:lo + block] @ g64.T))
+            sv = (float(lm) - d2.clamp_min_(0.0).sqrt_()) * ok[lo:lo + block,
+                                                                None]
+            out += (sv - c64[lo:lo + block, None]).clamp_min_(0.0).sum(0)
+        return out
+
+    tf32 = bf16_peak(card["name"]) / 2
     for n, d, path in ((ROWS, 65, "craig-lazy"), (ROWS, 10, "craig-lazy-otf"),
                        (129, 65, None), (4097, 10, None)):
         g = t(rng.standard_normal((n, d)).astype(np.float32))
@@ -641,6 +694,7 @@ def phase_kernels_fl(torch, np, card: dict, records: dict) -> None:
         cover = t(np.abs(rng.standard_normal(n)).astype(np.float32) * 8)
         rok = t(rng.random(n) > 0.1)
         mask = t(rng.random(n) < 0.7)
+        plan = asdict(fl_k.fl_gain_otf_plan(n, d))
         for what, m in (("random", mask),
                         ("all-masked", torch.zeros_like(mask))):
             if what == "all-masked" and n != 4097:
@@ -651,20 +705,67 @@ def phase_kernels_fl(torch, np, card: dict, records: dict) -> None:
             err = check_scan(got, want, f"fl_gain_argmax_otf ({n}, {d}) "
                              f"{what}")
             emit("kernels", kernel="fl_gain_argmax_otf", shape=[n, d],
-                 case=what, max_abs_err=err)
+                 case=what, max_abs_err=err, route=plan["route"])
         if path is None:
             continue
-        ms = device_ms(torch, lambda: fl_k.fl_gain_argmax_otf(
-            g, cover, rok, mask, lm, sqnorms=sqn), reps=10, warmup=2)
+        # Both routes: the plain version's tolerance, the f64 scan's error
+        # over the largest gain (the tensor cores' limit 1e-6, a tenth of
+        # the lazy greedy's certification margin), the same bits twice.
+        want = ref.fl_gain_argmax_otf_ref(g, cover, rok, mask, lm,
+                                          sqnorms=sqn)
+        g64 = gains64(g, sqn, cover, rok, lm)
+        scale = float(g64.abs().max())
+        routes = {}
+        for route in ("tc", "ffma"):
+            got = fl_k.fl_gain_argmax_otf(g, cover, rok, mask, lm,
+                                          sqnorms=sqn, route=route)
+            again = fl_k.fl_gain_argmax_otf(g, cover, rok, mask, lm,
+                                            sqnorms=sqn, route=route)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"fl_gain_argmax_otf ({n}, {d}) {route}: not the same "
+                  "bits twice")
+            err = check_scan(got, want, f"fl_gain_argmax_otf ({n}, {d}) "
+                             f"{route}")
+            routes[route] = dict(
+                max_abs_err=err,
+                f64_rel_err=float((got[0].double() - g64).abs().max())
+                / scale,
+                ms=device_ms(torch, lambda: fl_k.fl_gain_argmax_otf(
+                    g, cover, rok, mask, lm, sqnorms=sqn, route=route),
+                    reps=10, warmup=2))
+        check(routes["tc"]["f64_rel_err"] <= 1e-6,
+              f"fl_gain_argmax_otf ({n}, {d}): the tensor cores' gains are "
+              f"{routes['tc']['f64_rel_err']} of the largest gain off an "
+              "f64 scan, more than 1e-6")
+        ops = device_ops(torch, lambda: fl_k.fl_gain_argmax_otf(
+            g, cover, rok, mask, lm, sqnorms=sqn))
         plain = device_ms(torch, lambda: ref.fl_gain_argmax_otf_ref(
             g, cover, rok, mask, lm, sqnorms=sqn), reps=5, warmup=1)
-        # operations: the dot products (2 n^2 d) and 8 f32 operations of the
-        # epilogue per similarity element; the sqrt is not counted.
-        b, by = bound(4 * n * d + 14 * n + 12, 2 * n * n * d + 8 * n * n)
-        records["fl_gain_argmax_otf"][path] = record(
-            err, ms, plain, None, b, by, [n, d])
-        emit("kernels", kernel="fl_gain_argmax_otf", shape=[n, d], ms=ms,
-             plain_ms=plain, bound_ms=b, bound_by=by)
+        nbytes = 4 * n * d + 14 * n + 12
+        # The FFMA kernel: the dot products (2 n^2 d) and 8 f32 operations of
+        # the epilogue per similarity element, all at the f32 rate (the sqrt
+        # is not counted).  The tensor cores: the dots as three TF32 passes
+        # over d at the dense TF32 rate (the zero columns past d are the
+        # kernel's layout, not work the function needs), or the epilogue's
+        # 8 f32 operations an element, whichever takes longer (the two
+        # overlap).
+        b, by = bound(nbytes, 2 * n * n * d + 8 * n * n)
+        ops_tc = 3 * 2 * n * n * d / tf32 * 1e3
+        b_tc = max(ops_tc, 8 * n * n / flops * 1e3, nbytes / bw * 1e3)
+        records["fl_gain_argmax_otf"][path] = dict(
+            record(routes["ffma"]["max_abs_err"], routes["ffma"]["ms"],
+                   plain, None, b, by, [n, d]),
+            f64_rel_err=routes["ffma"]["f64_rel_err"])
+        records["fl_gain_argmax_otf_tc"][path] = dict(
+            record(routes["tc"]["max_abs_err"], routes["tc"]["ms"], plain,
+                   None, b_tc, "operations", [n, d]),
+            f64_rel_err=routes["tc"]["f64_rel_err"], f32_bound_ms=b,
+            plan=plan, device_ops=ops)
+        emit("kernels", kernel="fl_gain_argmax_otf", shape=[n, d],
+             routes=routes, plan=plan, device_ops=ops, plain_ms=plain,
+             bound_ms=b_tc, f32_bound_ms=b, bound_by="operations")
+        del g64
+        torch.cuda.empty_cache()
 
     # -- sqdist: the resident build of the main path's proxies (f32), and a
     #    ragged bf16 case --------------------------------------------------
@@ -859,9 +960,11 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
     rate of the (45 000, 65) pool in the L2 cache.
 
     Tolerances: against B single launches the same bits (the kernels sum
-    in row_dot's order); against the plain version scores to rtol 1e-5
-    (and an absolute 1e-6 of the largest |g||v| for ``corr_batched``), the
-    index equal unless the two scores are within 1e-6 of each other."""
+    in row_dot's order; the single launches on ``corr_argmax``'s warp
+    route, never the row tiles it shares with the batched kernel); against
+    the plain version scores to rtol 1e-5 (and an absolute 1e-6 of the
+    largest |g||v| for ``corr_batched``), the index equal unless the two
+    scores are within 1e-6 of each other."""
     from repro_torch.kernels import corr as corr_k
     from repro_torch.kernels import ref
 
@@ -950,7 +1053,8 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
         single = [corr_k.corr_argmax(mat if mat.dim() == 2 else mat[j],
                                      w[j], base[:, j].contiguous(),
                                      mask[:, j].contiguous(),
-                                     absolute=absolute) for j in range(b)]
+                                     absolute=absolute, route="warps")
+                  for j in range(b)]
         check(torch.equal(gi, torch.stack([x[0] for x in single]))
               and torch.equal(gv, torch.stack([x[1] for x in single])),
               f"corr_argmax_batched {what}: not the bits of B single "
@@ -1048,7 +1152,7 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
                 for j in range(b)]
         one = device_ms(torch, lambda: [corr_k.corr_argmax(
             mat if mat.dim() == 2 else mat[j], w[j], *cols[j],
-            absolute=absolute) for j in range(b)])
+            absolute=absolute, route="warps") for j in range(b)])
         ops = device_ops(torch, lambda: corr_k.corr_argmax_batched(
             mat, w, base, mask, absolute=absolute))
         check(ops == 1, f"corr_argmax_batched {what}: {ops} device "
@@ -1617,6 +1721,7 @@ def phase_craig(torch, np, train, val) -> dict:
         torch.cuda.synchronize()
         return result, dict(seconds=time.perf_counter() - t0,
                             launches=ops.launch_counts(),
+                            routes=ops.launch_routes(),
                             greedy_stats=list(stats),
                             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
@@ -1686,8 +1791,9 @@ def phase_craig(torch, np, train, val) -> dict:
         check_sel(resident, "craig-resident")
         for path in CRAIG_PATHS:
             emit("craig", path=path, **paths[path])
-        needs = {"craig-lazy": ("fl_gain_argmax_otf", "lastlayer_grad"),
-                 "craig-lazy-otf": ("fl_gain_argmax_otf", "lastlayer_grad"),
+        needs = {"craig-lazy": ("fl_gain_argmax_otf_tc", "lastlayer_grad"),
+                 "craig-lazy-otf": ("fl_gain_argmax_otf_tc",
+                                    "lastlayer_grad"),
                  "craig-stochastic": ("lastlayer_grad",),
                  "craig-pb": ("lastlayer_grad",),
                  "glister": ("corr_argmax", "lastlayer_grad"),
@@ -1698,6 +1804,15 @@ def phase_craig(torch, np, train, val) -> dict:
                       f"kernel {name} was not launched on the {path} path")
         check(paths["craig-resident"]["launches"]["sqdist"] == 1,
               "the resident path built its similarity more than once")
+        # The plans' routes: the on-the-fly scans on the tensor cores (the
+        # FFMA kernel never), GLISTER's argmax on the row tiles.
+        for path in ("craig-lazy", "craig-lazy-otf"):
+            check(paths[path]["launches"]["fl_gain_argmax_otf"] == 0,
+                  f"the FFMA fl_gain_argmax_otf launched on the {path} path")
+        check(paths["glister"]["routes"]["corr_argmax/rows"]
+              == paths["glister"]["launches"]["corr_argmax"],
+              f"glister: corr_argmax left the row tiles: "
+              f"{paths['glister']['routes']}")
 
         # Kernels against plain versions on whole selections, on the card.
         sim = greedy.build_sim(pcg, l_max=lm, dist_fn=ops.sqdist)
@@ -1747,6 +1862,7 @@ def phase_craig(torch, np, train, val) -> dict:
         greedy.fl_greedy = fl_greedy
     return {"counts": {p: paths[p]["launches"] for p in CRAIG_PATHS},
             "shapes": shapes,
+            "routes": {p: paths[p]["routes"] for p in CRAIG_PATHS},
             "selection_seconds": {p: paths[p]["selection_seconds"]
                                   for p in CRAIG_PATHS}}
 

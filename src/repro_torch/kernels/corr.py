@@ -17,29 +17,34 @@ and of the batched kernels by (kernel, rows, d, dtype, B, per-problem).
 
 The batched kernels launch by a plan (``batched_plan``), a pure function of
 the shapes: the row-tile route (one thread a row) for a shared pool of
-width 1-96, the warp route (one warp a row) for the rest.  ``bound_max``
-launches by ``bound_max_plan``, a pure function of the shapes and the two
-addresses it aligns: the tile route (live tiles by bulk copy) or the row
-loop.  Both it and ``corr_argmax_batched`` are one device operation a
-call: a per-stream workspace, zero between calls, takes the place of a
-memset and a decode launch.
+width 1-96, the warp route (one warp a row) for the rest.  ``corr_argmax``
+launches by ``corr_argmax_plan``: the batched argmax's row tiles at B = 1
+for a pool of width 1-96 and at least ``ARGMAX_MIN_ROWS`` rows, its own
+warp kernel (``csrc/corr.cu``) for the rest; the two give the same bits.
+``bound_max`` launches by ``bound_max_plan``, a pure function of the
+shapes and the two addresses it aligns: the tile route (live tiles by bulk
+copy) or the row loop.  It, ``corr_argmax`` and ``corr_argmax_batched``
+are one device operation a call: a per-stream workspace, zero between
+calls, takes the place of a memset and a decode launch.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.args import (BLOCK_SMEM, SM_SMEM, argmax_outputs,
-                                      bank_ways, check_array, check_matrix,
+from repro_torch.kernels.args import (BLOCK_SMEM, SM_SMEM, bank_ways,
+                                      check_array, check_matrix,
                                       check_vector, sm_count, stream)
 
 launches = {"corr": 0, "corr_argmax": 0, "corr_batched": 0,
             "corr_argmax_batched": 0, "bound_max": 0}
-# bound_max's launches by route, bumped with ``launches``.
+# bound_max's and corr_argmax's launches by route, bumped with ``launches``.
 bound_routes = {"tiles": 0, "rows": 0}
+argmax_routes = {"rows": 0, "warps": 0}
 # corr and bound_max launches by (kernel, rows, d, dtype), the batched
 # kernels' by (kernel, rows, d, dtype, B, per-problem matrix), bumped with
 # ``launches``: one path calls corr at many shapes (a buffer, a chunk, one
@@ -81,7 +86,8 @@ def corr(grads: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
 
 
 def corr_argmax(colcache: torch.Tensor, w: torch.Tensor, base: torch.Tensor,
-                mask: torch.Tensor, absolute: bool = False
+                mask: torch.Tensor, absolute: bool = False, *,
+                route: str | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused masked argmax of ``base - colcache @ w`` (optionally abs).
 
@@ -89,6 +95,11 @@ def corr_argmax(colcache: torch.Tensor, w: torch.Tensor, base: torch.Tensor,
     (index i32 (), score f32 ()) on the device.  The lowest index wins a
     tie; an all-masked input gives (0, -inf).  The score vector is never
     written to device memory.
+
+    A CUDA call launches by ``corr_argmax_plan`` (``route`` forces one, for
+    measurement): one device operation, whose last block writes (index,
+    score) and returns the stream's workspace to zero.  Both routes give
+    the same bits.
     """
     if not colcache.is_cuda:
         return ref.corr_argmax_ref(colcache, w, base, mask, absolute=absolute)
@@ -98,14 +109,30 @@ def corr_argmax(colcache: torch.Tensor, w: torch.Tensor, base: torch.Tensor,
     check_vector("w", w, p, dev, torch.float32)
     check_vector("base", base, n, dev, torch.float32)
     check_vector("mask", mask, n, dev, torch.bool)
-    scratch, idx, val = argmax_outputs(dev)
-    code = build.lib().rt_corr_argmax(
-        dev.index, colcache.data_ptr(), w.data_ptr(),
-        base.data_ptr(), mask.data_ptr(), n, p, int(absolute),
-        _vec_ok(colcache), scratch.data_ptr(), idx.data_ptr(), val.data_ptr(),
-        stream(dev))
+    plan = corr_argmax_plan(n, p, colcache.data_ptr(), sm_count(dev), route)
+    vec = _vec_ok(colcache)
+    idx = torch.empty((), dtype=torch.int32, device=dev)
+    val = torch.empty((), dtype=torch.float32, device=dev)
+    s = stream(dev)
+    ws = _workspace(dev, s, KEY_STRIDE + 1)
+    if plan.route == "rows":
+        # The batched argmax at B = 1: base and mask (n,) are (n, 1), w
+        # (p,) is (1, p), and (index, score) its (1,) outputs.
+        code = build.lib().rt_corr_argmax_batched(
+            dev.index, colcache.data_ptr(), w.data_ptr(), base.data_ptr(),
+            mask.data_ptr(), n, p, 1, 0, int(absolute), vec, 1, plan.rows,
+            plan.groups, plan.stages, plan.grid, ws.data_ptr(),
+            idx.data_ptr(), val.data_ptr(), s)
+    else:
+        code = build.lib().rt_corr_argmax(
+            dev.index, colcache.data_ptr(), w.data_ptr(), base.data_ptr(),
+            mask.data_ptr(), n, p, int(absolute), vec, ws.data_ptr(),
+            idx.data_ptr(), val.data_ptr(), s)
+    if code != 0:
+        _workspaces.pop((dev.index, s), None)
     build.check(code, "corr_argmax")
     launches["corr_argmax"] += 1
+    argmax_routes[plan.route] += 1
     return idx, val
 
 
@@ -119,6 +146,7 @@ ROW_THREADS = 128       # a row-tile block's threads (kRowThreads)
 ROW_MAX_D = 96          # the widest row a thread keeps in registers
 ROW_MIN_ROWS = 1 << 11  # smaller pools take the warps, and so do
 ROW_MIN_PAIRS = 1 << 14  # smaller batches (PERF.md §6)
+ARGMAX_MIN_ROWS = 10_240  # corr_argmax's row tiles from here (PERF.md §6)
 # Blocks an SM by rows a thread, the kernel's bounds: 128 threads at up to
 # 128 registers each (one row a thread), or 170 (two rows).
 ROW_BLOCKS_PER_SM = {1: 4, 2: 3}
@@ -169,6 +197,38 @@ def row_split(b: int, argmax: bool, vec: bool) -> tuple[int, int]:
     return (4 if argmax else 2), 2
 
 
+def _row_plan(n: int, d: int, b: int, argmax: bool, vec: bool,
+              sms: int) -> BatchedPlan | None:
+    """The row-tile launch of an (n, d) shared pool and B problems, or None
+    where its layout does not fit a block's shared memory."""
+    groups, per_thread = row_split(b, argmax, vec)
+    if -(-n // (ROW_THREADS * per_thread // groups)) < sms:
+        # fewer tiles than SMs: one row a thread, the problems shared
+        # by up to four threads
+        groups, per_thread = min(4, 1 << (b.bit_length() - 1)), 1
+    rows = ROW_THREADS * per_thread // groups
+    tiles = max(1, -(-n // rows))
+
+    def fit(stages):
+        smem = rows_smem(d, b, rows, stages, argmax)
+        return smem, min(SM_SMEM // (smem + 1024),
+                         ROW_BLOCKS_PER_SM[per_thread])
+
+    smem, per_sm = fit(1)
+    if smem > BLOCK_SMEM:
+        return None
+    smem2, per2 = fit(2)
+    if tiles <= sms * per_sm or smem2 > BLOCK_SMEM:
+        return BatchedPlan("rows", rows, 1, tiles, smem, groups)
+    return BatchedPlan("rows", rows, 2, min(tiles, sms * per2), smem2,
+                       groups)
+
+
+def _warp_plan(n: int, sms: int) -> BatchedPlan:
+    grid = max(1, min(-(-n // WARP_ROWS), sms * WARP_BLOCKS_PER_SM))
+    return BatchedPlan("warps", WARP_ROWS, 0, grid, 0)
+
+
 def batched_plan(n: int, d: int, b: int, *, argmax: bool,
                  per_problem: bool = False, vec: bool = False,
                  sms: int = 132) -> BatchedPlan:
@@ -189,28 +249,54 @@ def batched_plan(n: int, d: int, b: int, *, argmax: bool,
     thread walks its problems in turn."""
     if (not per_problem and 1 <= d <= ROW_MAX_D and b >= 1
             and n >= ROW_MIN_ROWS and n * b >= ROW_MIN_PAIRS):
-        groups, per_thread = row_split(b, argmax, vec)
-        if -(-n // (ROW_THREADS * per_thread // groups)) < sms:
-            # fewer tiles than SMs: one row a thread, the problems shared
-            # by up to four threads
-            groups, per_thread = min(4, 1 << (b.bit_length() - 1)), 1
-        rows = ROW_THREADS * per_thread // groups
-        tiles = max(1, -(-n // rows))
+        plan = _row_plan(n, d, b, argmax, vec, sms)
+        if plan is not None:
+            return plan
+    return _warp_plan(n, sms)
 
-        def fit(stages):
-            smem = rows_smem(d, b, rows, stages, argmax)
-            return smem, min(SM_SMEM // (smem + 1024),
-                             ROW_BLOCKS_PER_SM[per_thread])
 
-        smem, per_sm = fit(1)
-        if smem <= BLOCK_SMEM:
-            smem2, per2 = fit(2)
-            if tiles <= sms * per_sm or smem2 > BLOCK_SMEM:
-                return BatchedPlan("rows", rows, 1, tiles, smem, groups)
-            return BatchedPlan("rows", rows, 2, min(tiles, sms * per2), smem2,
-                               groups)
-    grid = max(1, min(-(-n // WARP_ROWS), sms * WARP_BLOCKS_PER_SM))
-    return BatchedPlan("warps", WARP_ROWS, 0, grid, 0)
+def corr_argmax_plan(n: int, p: int, addr: int, sms: int = 132,
+                     route: str | None = None) -> BatchedPlan:
+    """The launch of ``corr_argmax`` on an (n, p) f32 matrix at ``addr``,
+    on a card of ``sms`` SMs; ``route`` forces one route (ValueError where
+    the row tiles cannot take the call).
+
+    The row tiles of the batched argmax at B = 1 (``_row_plan``) take a
+    matrix of width 1 <= p <= ``ROW_MAX_D`` from ``ARGMAX_MIN_ROWS`` rows,
+    whether or not its first element lies on a 16-byte boundary (their
+    copy's head and tail take the rest); the warp kernel of
+    ``csrc/corr.cu`` takes everything else.  On an H100 (PERF.md §6,
+    ``tools/kernel_turns.py --routes``) the warps win up to 8 192 rows
+    (their single pass against the tiles' copy and fold) and the tiles from
+    12 288, at widths 10 and 65, aligned or not: GLISTER's (45 000, 10)
+    takes the tiles, GRAD-MATCH-PB's (703, 10), the wide regime's p 512 and
+    the LM's (16, 4) the warps.  ``addr`` decides the replayed lane order
+    (16-byte or scalar), as it does ``rt_corr_argmax``'s."""
+    if route not in (None, "rows", "warps"):
+        raise ValueError(f"corr_argmax: no route {route!r}")
+    return _argmax_plan(n, p, addr % 16 == 0 and p % 4 == 0, sms, route,
+                        ROW_MAX_D, ARGMAX_MIN_ROWS)
+
+
+@functools.lru_cache(maxsize=256)
+def _argmax_plan(n: int, p: int, vec: bool, sms: int, route: str | None,
+                 max_d: int, min_rows: int) -> BatchedPlan:
+    """``corr_argmax_plan`` by the 16-byte lane order rather than the
+    address, cached: GLISTER and the OMP rounds call ``corr_argmax`` at one
+    shape thousands of times a selection, and the plan's arithmetic is host
+    time on each call.  The thresholds are arguments, so that the cache
+    follows a caller who changes them."""
+    rows = (_row_plan(n, p, 1, True, vec, sms)
+            if 1 <= p <= max_d and n >= 1 and n < 2 ** 31 else None)
+    if route == "rows" and rows is None:
+        raise ValueError(f"corr_argmax: the row tiles cannot take "
+                         f"({n}, {p})")
+    if route == "rows" or (route is None and rows is not None
+                           and n >= min_rows):
+        return rows
+    # the warp kernel's own grid (csrc/common.cuh: blocks_for_rows)
+    return BatchedPlan("warps", WARP_ROWS, 0,
+                       max(1, min(-(-n // WARP_ROWS), ROWS_MAX_BLOCKS)), 0)
 
 
 def tile_spans(n: int, d: int, offset: int,
@@ -238,7 +324,8 @@ def _plan(dev: torch.device, n: int, d: int, b: int, argmax: bool,
 
 
 # corr_argmax_batched's workspace: B key words (one 128-byte line each)
-# and a completion counter, per (device, stream), zero when made.  The
+# and a completion counter, per (device, stream), zero when made; B = 1
+# for corr_argmax on either route (csrc/corr.cu: kArgmaxDone).  The
 # kernel's last block returns them to zero, so a call needs no memset;
 # after a failed call the workspace is dropped and the next call makes a
 # new one.  (Make it with a first call before capturing calls into a CUDA

@@ -17,6 +17,16 @@
 // the reference's tie rule holds whatever order the blocks finish in.  The
 // TPU kernel carried that pair in SMEM across a sequential grid; blocks here
 // run in parallel, which is why the pair is packed into one atomic word.
+//
+// corr_argmax is one device operation a call: the key word and a completion
+// counter live in a workspace the wrapper keeps per (device, stream), zero
+// between calls; the last block to finish (the counter behind
+// __threadfence) decodes the key into idx / val and returns both words to
+// 0.  This file is the warp route.  The wrapper's plan (kernels/corr.py:
+// corr_argmax_plan) sends a pool of width <= 96 and at least
+// ARGMAX_MIN_ROWS rows to the row tiles of corr_batched.cu at B = 1
+// instead (one thread a row replaying row_dot's lane order, rows by bulk
+// copy), which give the same bits.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -36,12 +46,17 @@ corr_kernel(const T* __restrict__ g, const float* __restrict__ r,
   }
 }
 
+// The workspace's completion counter: a 128-byte line past the key word
+// (kernels/corr.py: KEY_STRIDE, the batched argmax's layout at B = 1).
+constexpr int kArgmaxDone = 16;
+
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
 corr_argmax_kernel(const float* __restrict__ c, const float* __restrict__ w,
                    const float* __restrict__ base,
                    const uint8_t* __restrict__ mask, int64_t n, int64_t p,
-                   int absolute, unsigned long long* __restrict__ best) {
+                   int absolute, unsigned long long* __restrict__ ws,
+                   int* __restrict__ idx, float* __restrict__ val) {
   __shared__ unsigned long long warp_keys[kWarpsPerBlock];
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
@@ -58,13 +73,29 @@ corr_argmax_kernel(const float* __restrict__ c, const float* __restrict__ w,
   }
   if (lane == 0) warp_keys[wib] = key;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long m = warp_keys[0];
+  if (threadIdx.x != 0) return;
+  unsigned long long m = warp_keys[0];
 #pragma unroll
-    for (int q = 1; q < kWarpsPerBlock; ++q)
-      m = warp_keys[q] > m ? warp_keys[q] : m;
-    if (m != 0ull) atomicMax(best, m);
+  for (int q = 1; q < kWarpsPerBlock; ++q)
+    m = warp_keys[q] > m ? warp_keys[q] : m;
+  if (m != 0ull) atomicMax(ws, m);
+  __threadfence();
+  unsigned int* done = reinterpret_cast<unsigned int*>(ws + kArgmaxDone);
+  if (atomicAdd(done, 1u) != gridDim.x - 1) return;
+  // The last block: every block's key is in.  Decode it (argmax_fold's
+  // decode) and return the workspace to 0 for the next call.
+  __threadfence();
+  const unsigned long long k = atomicExch(ws, 0ull);
+  if (k == 0ull) {  // no rows at all
+    *idx = 0;
+    *val = -INFINITY;
+  } else {
+    unsigned int u = static_cast<unsigned int>(k >> 32);
+    u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+    *idx = static_cast<int>(~static_cast<unsigned int>(k & 0xffffffffull));
+    *val = __uint_as_float(u);
   }
+  atomicExch(done, 0u);
 }
 
 template <typename T, bool VEC>
@@ -77,10 +108,10 @@ void launch_corr(const void* g, const float* r, float* out, int64_t n,
 template <bool VEC>
 void launch_corr_argmax(const float* c, const float* w, const float* base,
                         const uint8_t* mask, int64_t n, int64_t p,
-                        int absolute, unsigned long long* best,
-                        cudaStream_t s) {
+                        int absolute, unsigned long long* ws, int* idx,
+                        float* val, cudaStream_t s) {
   corr_argmax_kernel<VEC><<<blocks_for_rows(n), kThreads, 0, s>>>(
-      c, w, base, mask, n, p, absolute, best);
+      c, w, base, mask, n, p, absolute, ws, idx, val);
 }
 
 }  // namespace
@@ -109,20 +140,22 @@ int rt_corr(int device, const void* g, int dtype, const float* r, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// f32 only.  best: one 8-byte scratch word on the device.  idx/val: one
-// int32 and one float32 on the device.
+// f32 only.  ws: 17 8-byte words on the device, zero before the call and
+// zero after it (the key at word 0, the completion counter at word 16).
+// idx/val: one int32 and one float32 on the device.  One launch.
 int rt_corr_argmax(int device, const float* c, const float* w,
                    const float* base, const uint8_t* mask, int64_t n,
-                   int64_t p, int absolute, int vec, void* best, int* idx,
+                   int64_t p, int absolute, int vec, void* ws, int* idx,
                    float* val, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      argmax_fold(best, idx, val, s, [&](unsigned long long* b) {
-    if (vec) launch_corr_argmax<true>(c, w, base, mask, n, p, absolute, b, s);
-    else launch_corr_argmax<false>(c, w, base, mask, n, p, absolute, b, s);
-  }));
+  auto* keys = static_cast<unsigned long long*>(ws);
+  if (vec) launch_corr_argmax<true>(c, w, base, mask, n, p, absolute, keys,
+                                    idx, val, s);
+  else launch_corr_argmax<false>(c, w, base, mask, n, p, absolute, keys,
+                                 idx, val, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* rt_error_string(int code) {

@@ -8,6 +8,8 @@
 //                             (per-problem masked argmax of base - mat @ w,
 //                             optionally abs; mat shared (n, p) or
 //                             per-problem (B, n, p); base, mask (n, B))
+// corr_argmax launches the argmax's row tiles at B = 1 (kernels/corr.py:
+// corr_argmax_plan) for the pools they suit.
 // Column b of corr_batched equals rt_corr(g, v[b]), and problem b's (index,
 // value) equals rt_corr_argmax on its slice, bit for bit: each dot product
 // is summed in row_dot's order (csrc/common.cuh), 16-byte or scalar as

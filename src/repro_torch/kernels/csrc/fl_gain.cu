@@ -14,7 +14,12 @@
 // does one subtract, max and add per element: device-memory bandwidth bounds
 // it (8.1 GB at n = 45 000, 2.4 ms at 3.35 TB/s).  The on-the-fly scan does
 // 2 n^2 d FLOPs of dot products plus a sqrt per element from an (n, d)
-// matrix that stays in L2: the f32 rate of the CUDA cores bounds it.
+// matrix that stays in L2.  This file's route for it, FFMA tiles on the
+// CUDA cores, is bounded by their f32 rate.  It takes the shapes the
+// wrapper's plan (kernels/fl_gain.py: fl_gain_otf_plan) does not send to
+// the tensor cores (fl_gain_tc.cu: 3xTF32 wgmma fed by TMA, rows of up to
+// 104 columns): wider rows, whose tiles do not fit a block's shared memory
+// there.
 //
 // Design.  The TPU kernels carry each column's partial gain in VMEM across
 // a sequential grid of row tiles.  Here one block owns a tile of adjacent

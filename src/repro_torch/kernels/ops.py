@@ -51,19 +51,20 @@ def launch_shapes() -> dict[tuple, int]:
     return dict(corr_kernel.shapes)
 
 
+_ROUTES = (("lastlayer_grad", llg_kernel.lastlayer_routes),
+           ("bound_max", corr_kernel.bound_routes),
+           ("corr_argmax", corr_kernel.argmax_routes))
+
+
 def launch_routes() -> dict[str, int]:
-    """``lastlayer_grad`` and ``bound_max`` launches since the last
-    ``reset_launch_counts``, by route ("kernel/route")."""
-    return {f"{kernel}/{route}": n
-            for kernel, routes in (("lastlayer_grad",
-                                    llg_kernel.lastlayer_routes),
-                                   ("bound_max", corr_kernel.bound_routes))
+    """``lastlayer_grad``, ``bound_max`` and ``corr_argmax`` launches
+    since the last ``reset_launch_counts``, by route ("kernel/route")."""
+    return {f"{kernel}/{route}": n for kernel, routes in _ROUTES
             for route, n in routes.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in _COUNTERS + (llg_kernel.lastlayer_routes,
-                               corr_kernel.bound_routes):
+    for counts in _COUNTERS + tuple(routes for _, routes in _ROUTES):
         for name in counts:
             counts[name] = 0
     corr_kernel.shapes.clear()

@@ -123,14 +123,16 @@ def fl_gain_argmax_ref(sim: torch.Tensor, cover: torch.Tensor,
 def fl_gains_cols_ref(cand: torch.Tensor, cand_sqn: torch.Tensor,
                       grads: torch.Tensor, sqnorms: torch.Tensor,
                       cover: torch.Tensor, row_ok: torch.Tensor,
-                      l_max, block: int = 256) -> torch.Tensor:
+                      l_max, block: int = 256, dot=None) -> torch.Tensor:
     """FL gains of the candidates ``cand`` (m, d) against the pool
     ``grads`` (n, d), in strips of ``block`` coverage rows:
     ``gain_j = sum_i relu((l_max - ||g_i - c_j||) * row_ok_i - cover_i)``,
     peak memory O(block * m).  The one copy of the strip computation: the
     full on-the-fly scan runs it with cand = grads and the lazy engine's
     wide refresh on a slice, so their gains reduce in the same order,
-    which the lazy certification margin assumes.
+    which the lazy certification margin assumes.  ``dot(rows, cand)``
+    replaces the strips' ``rows @ cand.T`` (the tensor-core scan's
+    emulation, ``fl_gain.emulate_otf_tc``).
     """
     n = grads.shape[0]
     g = grads.float()
@@ -141,8 +143,8 @@ def fl_gains_cols_ref(cand: torch.Tensor, cand_sqn: torch.Tensor,
                         device=g.device)
     for lo in range(0, n, block):
         hi = min(lo + block, n)
-        d2 = (sqnorms[lo:hi, None] + cand_sqn[None, :]
-              - 2.0 * (g[lo:hi] @ cand.T))
+        prod = g[lo:hi] @ cand.T if dot is None else dot(g[lo:hi], cand)
+        d2 = (sqnorms[lo:hi, None] + cand_sqn[None, :] - 2.0 * prod)
         s = (lm - torch.sqrt(d2.clamp_min_(0.0))) * ok[lo:hi, None]
         gains = gains + (s - cover[lo:hi, None]).clamp_min_(0.0).sum(0)
     return gains

@@ -1,9 +1,12 @@
-"""The launch plans of ``lastlayer_grad`` and ``bound_max`` as pure
-functions, on the CPU.
+"""The launch plans of ``lastlayer_grad``, ``bound_max``,
+``fl_gain_argmax_otf`` and ``corr_argmax`` as pure functions, on the CPU.
 
 ``lastlayer_grad.lastlayer_plan`` and ``corr.bound_max_plan`` choose each
 call's route (the tile route, rows in flight by bulk copy, or the kernel it
-replaced) from the shapes and the addresses alone.  These tests hold which
+replaced) from the shapes and the addresses alone; ``fl_gain.
+fl_gain_otf_plan`` chooses the tensor cores or the FFMA tiles, and
+``corr.corr_argmax_plan`` the batched argmax's row tiles at B = 1 or the
+warp kernel.  These tests hold which
 route each shape and address takes, that every tile's bulk copies are
 multiples of 16 bytes, that the layouts fit a block's 227 KB of shared
 memory and that the grids stay within their limits; and, in numpy, the two
@@ -22,6 +25,7 @@ import pytest
 pytest.importorskip("torch")
 
 from repro_torch.kernels import corr as corr_kernel  # noqa: E402
+from repro_torch.kernels import fl_gain as fl_kernel  # noqa: E402
 from repro_torch.kernels import lastlayer_grad as llg_kernel  # noqa: E402
 
 CSRC = Path(llg_kernel.__file__).resolve().parent / "csrc"
@@ -53,6 +57,22 @@ def test_plans_mirror_the_kernels_constants():
     # the workspace's three words, a 128-byte line each, inside its size
     done = _constant("bound_max.cu", "kWsDone")
     assert done + 1 <= corr_kernel.BOUND_WS_WORDS
+    # the tensor-core on-the-fly scan (fl_gain_tc.cu) and the FFMA one
+    for name, value in (("kOtfCols", fl_kernel.OTF_COLS),
+                        ("kOtfRows", fl_kernel.OTF_ROWS),
+                        ("kOtfMaxStages", fl_kernel.OTF_MAX_STAGES),
+                        ("kOtfMaxK8", fl_kernel.OTF_MAX_K8),
+                        ("kOtfStaticSmem", fl_kernel.OTF_STATIC_SMEM),
+                        ("kAlignSlack", fl_kernel.OTF_ALIGN_SLACK),
+                        ("kMaxSmem", fl_kernel.BLOCK_SMEM)):
+        assert _constant("fl_gain_tc.cu", name) == value, name
+    assert _constant("fl_gain_tc.cu", "kWsDone") + 1 == (
+        fl_kernel.OTF_WS_WORDS)
+    assert _constant("dot_tile.cuh", "kTileJ") == fl_kernel.FFMA_COLS
+    # corr_argmax's workspace: the batched layout at B = 1, both routes
+    assert _constant("corr.cu", "kArgmaxDone") == corr_kernel.KEY_STRIDE
+    assert _constant("corr_batched.cu", "kKeyStride") == (
+        corr_kernel.KEY_STRIDE)
 
 
 # -- lastlayer_grad ----------------------------------------------------------
@@ -311,3 +331,119 @@ def test_hgrad_row_division_is_exact():
         e = np.arange(rows * dh, dtype=np.uint64)
         inv = np.uint64((1 << 32) // dh + 1)
         assert np.array_equal((e * inv) >> np.uint64(32), e // np.uint64(dh))
+
+
+# -- fl_gain_argmax_otf ------------------------------------------------------
+
+def test_fl_gain_otf_plan_by_shape():
+    """d -> d_pad, the next multiple of wgmma's TF32 depth 8: the paths'
+    (45 000, 65) and (45 000, 10) take the tensor cores with four ring
+    slots; 104 columns with two; 105 the FFMA kernel (a forced tensor-core
+    route raises)."""
+    plan = fl_kernel.fl_gain_otf_plan
+    assert plan(45000, 65) == fl_kernel.FlOtfPlan(
+        "tc", 72, 4, 352, 1024 + 9 * 8192 + 4 * 9 * 4096)
+    assert plan(45000, 10) == fl_kernel.FlOtfPlan(
+        "tc", 16, 4, 352, 1024 + 2 * 8192 + 4 * 2 * 4096)
+    for d, d_pad, stages in ((1, 8, 4), (7, 8, 4), (8, 8, 4), (9, 16, 4),
+                             (72, 72, 4), (73, 80, 3), (88, 88, 3),
+                             (89, 96, 2), (104, 104, 2)):
+        got = plan(1000, d)
+        assert (got.route, got.d_pad, got.stages) == ("tc", d_pad, stages)
+        assert got.grid == 8
+    assert plan(45000, 105) == fl_kernel.FlOtfPlan("ffma", 105, 0, 704, 0)
+    assert plan(1, 600).grid == 1
+    with pytest.raises(ValueError, match="tensor cores"):
+        plan(300, 105, route="tc")
+    with pytest.raises(ValueError, match="no route"):
+        plan(300, 10, route="warps")
+    assert plan(300, 10, route="ffma").route == "ffma"
+    # 32-bit offsets: n d_pad < 2^31
+    assert plan(2 ** 31 // 72 + 1, 65).route == "ffma"
+    assert plan(2 ** 31 // 72, 65).route == "tc"
+
+
+def test_fl_gain_otf_plan_layouts_fit():
+    """For every d: where the plan takes the tensor cores, its dynamic
+    shared memory plus the kernel's static part fits a block's 227 KB and
+    its ring has the most slots (up to four) that do; where it does not,
+    not even two slots fit."""
+    budget = fl_kernel.BLOCK_SMEM - fl_kernel.OTF_STATIC_SMEM
+    for d in range(1, 300):
+        got = fl_kernel.fl_gain_otf_plan(45000, d)
+        k8 = -(-d // 8)
+        if got.route == "tc":
+            assert got.smem == fl_kernel.otf_smem(k8, got.stages) <= budget
+            assert got.stages == fl_kernel.OTF_MAX_STAGES or (
+                fl_kernel.otf_smem(k8, got.stages + 1) > budget)
+        else:
+            assert fl_kernel.otf_smem(k8, 2) > budget
+            assert d > 104
+
+
+# -- corr_argmax -------------------------------------------------------------
+
+def test_corr_argmax_plan_at_b1():
+    """GLISTER's (45 000, 10) takes the row tiles at B = 1 (the batched
+    argmax's plan there, every tile its own block); GRAD-MATCH-PB's
+    (703, 10), the wide regime's p 512 and the LM's (16, 4) the warps; a
+    pool off a 16-byte boundary takes the same rule (measured, PERF.md
+    §6), small pools the warps either way."""
+    plan = corr_kernel.corr_argmax_plan
+    a = 0x7F00_0000_0000
+    glister = plan(45000, 10, a)
+    assert glister == corr_kernel.BatchedPlan(
+        "rows", 128, 1, 352, corr_kernel.rows_smem(10, 1, 128, 1, True), 1)
+    assert plan(45000, 65, a).route == "rows"
+    assert plan(45000, 10, a + 4) == glister
+    assert plan(703, 10, a) == corr_kernel.BatchedPlan("warps", 8, 0, 88, 0)
+    # the warp kernel's own grid: a warp a row, eight a block, capped
+    assert plan(8192, 512, a) == corr_kernel.BatchedPlan(
+        "warps", 8, 0, 1024, 0)
+    assert plan(10 ** 6, 512, a).grid == 132 * 8 * 4
+    assert plan(16, 4, a).route == "warps"
+    assert plan(4096, 10, a + 4).route == "warps"
+    n0 = corr_kernel.ARGMAX_MIN_ROWS
+    assert plan(n0, 10, a).route == "rows"
+    assert plan(n0 - 1, 10, a).route == "warps"
+    assert plan(n0, 97, a).route == "warps"
+    assert plan(703, 10, a, route="rows").route == "rows"
+    assert plan(45000, 10, a, route="warps").route == "warps"
+    with pytest.raises(ValueError, match="row tiles"):
+        plan(8192, 512, a, route="rows")
+    with pytest.raises(ValueError, match="no route"):
+        plan(45000, 10, a, route="tiles")
+
+
+def test_corr_argmax_plan_is_cached_and_follows_its_thresholds(
+        monkeypatch):
+    """GLISTER calls corr_argmax thousands of times at one shape: the plan
+    is computed once (the same object again for every address that gives
+    the same lane order) and still follows a changed threshold."""
+    plan = corr_kernel.corr_argmax_plan
+    a = 0x7F00_0000_0000
+    first = plan(45000, 10, a, SMS)
+    assert plan(45000, 10, a + 64, SMS) is first
+    # 10 columns take the scalar lanes at any address: one cache entry
+    assert plan(45000, 10, a + 4, SMS) is first
+    monkeypatch.setattr(corr_kernel, "ARGMAX_MIN_ROWS", 45001)
+    assert plan(45000, 10, a, SMS).route == "warps"
+    monkeypatch.setattr(corr_kernel, "ROW_MAX_D", 9)
+    assert plan(45001, 10, a, SMS).route == "warps"
+    with pytest.raises(ValueError, match="row tiles"):
+        plan(45000, 10, a, SMS, "rows")
+    monkeypatch.undo()
+    assert plan(45000, 10, a, SMS) is first
+
+
+@pytest.mark.parametrize("n", [1, 703, 10240, 45000, 200000, 2 ** 31 - 1])
+@pytest.mark.parametrize("p", [1, 10, 64, 65, 96])
+def test_corr_argmax_rows_plan_is_the_batched_plan_at_b1(n, p):
+    """Where corr_argmax takes the row tiles, its plan is the batched
+    argmax's at B = 1 with the batch thresholds lifted: the launch that
+    gives the batched kernel's bits."""
+    a = 0x7F00_0000_0000
+    got = corr_kernel.corr_argmax_plan(n, p, a, SMS, "rows")
+    assert got == corr_kernel._row_plan(n, p, 1, True, p % 4 == 0, SMS)
+    assert got.route == "rows" and 1 <= got.grid < 2 ** 31
+    assert got.smem <= corr_kernel.BLOCK_SMEM

@@ -266,7 +266,9 @@ def test_craig_on_the_card_kernels_vs_plain(dev):
         assert torch.equal(a.indices, b.indices)
         np.testing.assert_allclose(float(a.err), float(b.err), rtol=1e-5)
         if kw["on_the_fly"]:
-            assert counts["fl_gain_argmax_otf"] >= 1
+            # (3 000, 20): the plan's tensor-core route
+            assert counts["fl_gain_argmax_otf_tc"] >= 1
+            assert counts["fl_gain_argmax_otf"] == 0
         else:
             assert counts["sqdist"] == 1 and counts["fl_gain_argmax"] >= 1
 
@@ -598,12 +600,14 @@ def _check_batched_argmax(mat, w, base, mask, absolute):
     ri, rv = ref.corr_argmax_batched_ref(mat, w, base, mask,
                                          absolute=absolute)
     b = w.shape[0]
+    # B single launches on the warp route (never the row tiles that
+    # corr_argmax shares with this kernel): the same bits.
     single = [corr_kernel.corr_argmax(mat if mat.dim() == 2 else mat[j],
                                       w[j], base[:, j].contiguous(),
                                       mask[:, j].contiguous(),
-                                      absolute=absolute) for j in range(b)]
+                                      absolute=absolute, route="warps")
+              for j in range(b)]
     torch.cuda.synchronize()
-    # B single launches: the same bits.
     assert torch.equal(gi, torch.stack([s[0] for s in single]))
     assert torch.equal(gv, torch.stack([s[1] for s in single]))
     for j in range(b):
@@ -753,7 +757,7 @@ def test_corr_argmax_batched_workspace_per_stream_and_after_a_failure(
     mat, w, base, _ = _batched_case(dev, n, p, b, 31, True)
     mask = _class_masks(dev, n, b, 32)
     want = [corr_kernel.corr_argmax(mat, w[j], base[:, j].contiguous(),
-                                    mask[:, j].contiguous())
+                                    mask[:, j].contiguous(), route="warps")
             for j in range(b)]
     want_i = torch.stack([x[0] for x in want])
     want_v = torch.stack([x[1] for x in want])
@@ -1163,3 +1167,262 @@ def test_bound_max_one_device_operation_and_its_workspace(dev, monkeypatch):
     monkeypatch.setattr(corr_kernel, "bound_max_plan", good)
     got = corr_kernel.bound_max(rows, norms, errn, r, acc, th, mask)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# fl_gain_argmax_otf on the tensor cores (csrc/fl_gain_tc.cu)
+# ---------------------------------------------------------------------------
+
+def _otf_case(dev, n, d, seed, grid=False):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((n, d)).astype(np.float32)
+    if grid:    # multiples of 1/8: every distance exact in f32
+        g = np.round(g * 8).astype(np.float32) / 8
+    g = _t(g, dev)
+    cover = _t(np.abs(rng.standard_normal(n)).astype(np.float32) * 4, dev)
+    rok = _t(rng.random(n) > 0.1, dev)
+    mask = _t(rng.random(n) < 0.7, dev)
+    return g, cover, rok, mask, greedy.default_l_max(g), (g * g).sum(1)
+
+
+def _gains64(g, sqn, cover, rok, lm, block=2048):
+    """The on-the-fly gains of the same f32 inputs, in f64."""
+    g64, s64 = g.double(), sqn.double()
+    out = torch.zeros((g.shape[0],), dtype=torch.float64, device=g.device)
+    for lo in range(0, g.shape[0], block):
+        d2 = (s64[lo:lo + block, None] + s64[None, :]
+              - 2.0 * (g64[lo:lo + block] @ g64.T))
+        sv = ((float(lm) - d2.clamp_min(0.0).sqrt())
+              * rok[lo:lo + block].double()[:, None])
+        out += (sv - cover[lo:lo + block].double()[:, None]).clamp_min(
+            0.0).sum(0)
+    return out
+
+
+@pytest.mark.parametrize("n,d", [(1, 3), (9, 64), (129, 65), (300, 10),
+                                 (260, 65), (777, 1), (1000, 104),
+                                 (2000, 73), (4097, 10)])
+def test_fl_gain_otf_tensor_cores_match_ffma_and_plain(dev, n, d):
+    """The tensor-core route against the FFMA route and the plain version
+    at ragged n and d, at the on-the-fly tolerance (1e-3: each column's
+    own term is rounding noise of ~sqrt(eps)|g_j|, rounded differently by
+    each); the same bits on a second call; an all-masked input (0, -inf)."""
+    g, cover, rok, mask, lm, sqn = _otf_case(dev, n, d, 11 * n + d)
+    assert fl_kernel.fl_gain_otf_plan(n, d).route == "tc"
+    before = dict(fl_kernel.launches)
+    tc = fl_kernel.fl_gain_argmax_otf(g, cover, rok, mask, lm, sqnorms=sqn)
+    again = fl_kernel.fl_gain_argmax_otf(g, cover, rok, mask, lm,
+                                         sqnorms=sqn)
+    ffma = fl_kernel.fl_gain_argmax_otf(g, cover, rok, mask, lm, sqnorms=sqn,
+                                        route="ffma")
+    want = ref.fl_gain_argmax_otf_ref(g, cover, rok, mask, lm, sqnorms=sqn)
+    torch.cuda.synchronize()
+    assert fl_kernel.launches["fl_gain_argmax_otf_tc"] == (
+        before["fl_gain_argmax_otf_tc"] + 2)
+    assert fl_kernel.launches["fl_gain_argmax_otf"] == (
+        before["fl_gain_argmax_otf"] + 1)
+    assert all(torch.equal(a, b) for a, b in zip(tc, again))
+    _check_fl(tc, want, want[0], tol=1e-3)
+    _check_fl(tc, ffma, want[0], tol=1e-3)
+    none = torch.zeros_like(mask)
+    _, gi, gv = fl_kernel.fl_gain_argmax_otf(g, cover, rok, none, lm,
+                                             sqnorms=sqn)
+    assert int(gi) == 0 and float(gv) == float("-inf")
+
+
+@pytest.mark.parametrize("d", [10, 65, 104])
+def test_fl_gain_otf_tensor_cores_f64_error(dev, d):
+    """The 3xTF32 products keep f32 grade: against an f64 scan of the same
+    inputs the gains of 16 384 rows are within 1e-6 of the largest (a
+    tenth of the lazy greedy's on-the-fly certification margin), as the
+    FFMA kernel's are."""
+    n = 16384
+    g, cover, rok, mask, lm, sqn = _otf_case(dev, n, d, n + 5 * d)
+    g64 = _gains64(g, sqn, cover, rok, lm)
+    scale = float(g64.abs().max())
+    for route in ("tc", "ffma"):
+        got = fl_kernel.fl_gain_argmax_otf(g, cover, rok, mask, lm,
+                                           sqnorms=sqn, route=route)[0]
+        assert float((got.double() - g64).abs().max()) <= 1e-6 * scale
+
+
+def test_fl_gain_otf_tensor_cores_exact_on_a_grid(dev):
+    """On a 1/8 grid hi is exact and lo is 0, so every distance is exact:
+    the tensor cores' and the FFMA kernel's gains differ only in the order
+    of their column sums, far inside the lazy greedy's 1e-5 margin."""
+    g, cover, rok, mask, lm, sqn = _otf_case(dev, 3001, 20, 5, grid=True)
+    tc = fl_kernel.fl_gain_argmax_otf(g, cover, rok, mask, lm, sqnorms=sqn)
+    ffma = fl_kernel.fl_gain_argmax_otf(g, cover, rok, mask, lm, sqnorms=sqn,
+                                        route="ffma")
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(tc[0].cpu().numpy(), ffma[0].cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_fl_gain_otf_tensor_cores_ties(dev):
+    """Equal columns give equal gains bit for bit (every column's sum runs
+    in the same order), so the lowest unmasked index wins: all rows equal,
+    then one duplicated row."""
+    n, d = 4097, 16
+    g = torch.full((n, d), 0.5, device=dev)
+    cover = torch.zeros((n,), device=dev)
+    rok = torch.ones((n,), dtype=torch.bool, device=dev)
+    mask = torch.ones((n,), dtype=torch.bool, device=dev)
+    mask[0] = False
+    lm = torch.tensor(3.0, device=dev)
+    gains, gi, gv = fl_kernel.fl_gain_argmax_otf(g, cover, rok, mask, lm)
+    assert int(gi) == 1 and float(gv) == float(gains[1])
+    assert bool((gains == gains[0]).all())
+    g, cover, rok, _, lm, _ = _otf_case(dev, n, d, 9, grid=True)
+    g[4000] = g[3001]
+    gains, _, _ = fl_kernel.fl_gain_argmax_otf(g, cover, rok, mask, lm)
+    assert float(gains[3001]) == float(gains[4000])
+    only = torch.zeros_like(mask)
+    only[[3001, 4000]] = True
+    _, gi, gv = fl_kernel.fl_gain_argmax_otf(g, cover, rok, only, lm)
+    assert int(gi) == 3001 and float(gv) == float(gains[3001])
+
+
+def test_fl_gain_otf_plan_on_the_card(dev):
+    """d_pad past 104 takes the FFMA kernel (a forced tensor-core route
+    raises before anything launches); d <= 104 the tensor cores."""
+    g, cover, rok, mask, lm, sqn = _otf_case(dev, 300, 105, 3)
+    before = dict(fl_kernel.launches)
+    got = fl_kernel.fl_gain_argmax_otf(g, cover, rok, mask, lm, sqnorms=sqn)
+    with pytest.raises(ValueError):
+        fl_kernel.fl_gain_argmax_otf(g, cover, rok, mask, lm, sqnorms=sqn,
+                                     route="tc")
+    assert fl_kernel.launches["fl_gain_argmax_otf"] == (
+        before["fl_gain_argmax_otf"] + 1)
+    assert fl_kernel.launches["fl_gain_argmax_otf_tc"] == (
+        before["fl_gain_argmax_otf_tc"])
+    want = ref.fl_gain_argmax_otf_ref(g, cover, rok, mask, lm, sqnorms=sqn)
+    _check_fl(got, want, want[0], tol=1e-3)
+
+
+def test_fl_gain_otf_sqrt_is_ieee_on_every_float(dev):
+    """The epilogue's branch-free roots are sqrtf bit for bit on every
+    float they take (2^31 inputs, on the card)."""
+    from repro_torch.kernels import build
+    bad = torch.zeros((1,), dtype=torch.int64, device=dev)
+    code = build.lib().rt_sqrt_rn_mismatches(
+        dev.index or 0, bad.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(code, "sqrt_rn_check")
+    torch.cuda.synchronize()
+    assert int(bad) == 0
+
+
+def test_fl_gain_otf_tensor_cores_two_device_operations(dev):
+    """A call is the prologue (TF32 halves, the key and counter zeroed) and
+    the scan, whose last block decodes the argmax: no memset, no decode
+    launch."""
+    g, cover, rok, mask, lm, sqn = _otf_case(dev, 4097, 65, 2)
+    ops_ = _one_device_op(lambda: fl_kernel.fl_gain_argmax_otf(
+        g, cover, rok, mask, lm, sqnorms=sqn))
+    assert len(ops_) == 2, ops_
+
+
+# ---------------------------------------------------------------------------
+# corr_argmax's routes (csrc/corr.cu warps, corr_batched.cu row tiles at B 1)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,p", [(1, 1), (7, 65), (33, 8), (129, 96),
+                                 (703, 10), (4097, 12), (45000, 10),
+                                 (45000, 65), (20000, 64)])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("absolute", [False, True])
+def test_corr_argmax_routes_equal(dev, n, p, aligned, absolute):
+    """The row tiles at B = 1 and the warp kernel give the same (index,
+    score) bits at every width, from an aligned pool and from one off a
+    16-byte boundary, each one device operation."""
+    rng = np.random.default_rng(n + p)
+    off = 0 if aligned else 1
+    buf = _t(rng.standard_normal(n * p + off).astype(np.float32), dev)
+    c = buf[off:].view(n, p)
+    w = _t(rng.standard_normal(p).astype(np.float32), dev)
+    base = _t(rng.standard_normal(n).astype(np.float32), dev)
+    mask = _t(rng.random(n) < 0.5, dev)
+    rows = corr_kernel.corr_argmax(c, w, base, mask, absolute=absolute,
+                                   route="rows")
+    warps = corr_kernel.corr_argmax(c, w, base, mask, absolute=absolute,
+                                    route="warps")
+    torch.cuda.synchronize()
+    assert torch.equal(rows[0], warps[0]) and torch.equal(rows[1], warps[1])
+    ri, rv = ref.corr_argmax_ref(c, w, base, mask, absolute=absolute)
+    if int(rows[0]) != int(ri):
+        s = base - c @ w
+        s = s.abs() if absolute else s
+        np.testing.assert_allclose(float(s[int(rows[0])]),
+                                   float(s[int(ri)]), rtol=1e-6)
+    np.testing.assert_allclose(float(rows[1]), float(rv), rtol=1e-5)
+    if not absolute:
+        for route in ("rows", "warps"):
+            ops_ = _one_device_op(lambda: corr_kernel.corr_argmax(
+                c, w, base, mask, route=route))
+            assert len(ops_) == 1, ops_
+
+
+def test_corr_argmax_plan_on_the_card(dev):
+    """GLISTER's (45 000, 10) takes the row tiles, GRAD-MATCH-PB's
+    (703, 10) and the wide regime's p 512 the warps, each counted by
+    route; a width the row tiles have no form for refuses a forced rows
+    route before anything launches."""
+    rng = np.random.default_rng(4)
+    before = dict(corr_kernel.argmax_routes)
+    for n, p, route in ((45000, 10, "rows"), (703, 10, "warps"),
+                        (8192, 512, "warps")):
+        c = _t(rng.standard_normal((n, p)).astype(np.float32), dev)
+        w = _t(rng.standard_normal(p).astype(np.float32), dev)
+        zeros = torch.zeros((n,), device=dev)
+        mask = torch.ones((n,), dtype=torch.bool, device=dev)
+        corr_kernel.corr_argmax(c, w, zeros, mask)
+        assert corr_kernel.argmax_routes[route] == before[route] + 1
+        before[route] += 1
+    with pytest.raises(ValueError):
+        corr_kernel.corr_argmax(c, w, zeros, mask, route="rows")
+
+
+def test_corr_argmax_workspace_per_stream_and_after_a_failure(
+        dev, monkeypatch):
+    """Back-to-back calls on two streams, each with its own workspace,
+    which every call on either route leaves zero; a refused launch drops
+    the workspace, so the next call starts from zeros even if the failure
+    left a key."""
+    n, p = 45000, 10
+    rng = np.random.default_rng(51)
+    c = _t(rng.standard_normal((n, p)).astype(np.float32), dev)
+    w = _t(rng.standard_normal(p).astype(np.float32), dev)
+    base = torch.zeros((n,), device=dev)
+    mask = _t(rng.random(n) < 0.9, dev)
+    want = corr_kernel.corr_argmax(c, w, base, mask, route="warps")
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(3):
+        for s in (s1, s2):
+            with torch.cuda.stream(s):
+                for route in ("rows", "warps"):
+                    got.append(corr_kernel.corr_argmax(c, w, base, mask,
+                                                       route=route))
+    torch.cuda.synchronize()
+    for gi, gv in got:
+        assert torch.equal(gi, want[0]) and torch.equal(gv, want[1])
+    di = dev.index or 0
+    keys = [(di, s.cuda_stream) for s in (s1, s2)]
+    for k in keys:
+        assert int(corr_kernel._workspaces[k].abs().sum()) == 0
+    assert corr_kernel._workspaces[keys[0]].data_ptr() != (
+        corr_kernel._workspaces[keys[1]].data_ptr())
+    key = (di, torch.cuda.current_stream(dev).cuda_stream)
+    corr_kernel._workspaces[key].fill_(-1)
+    good = corr_kernel.corr_argmax_plan
+    monkeypatch.setattr(corr_kernel, "corr_argmax_plan",
+                        lambda *a, **k: replace(good(*a, **k), groups=3))
+    with pytest.raises(RuntimeError, match="corr_argmax"):
+        corr_kernel.corr_argmax(c, w, base, mask)
+    assert key not in corr_kernel._workspaces
+    monkeypatch.setattr(corr_kernel, "corr_argmax_plan", good)
+    for route in ("rows", "warps"):
+        gi, gv = corr_kernel.corr_argmax(c, w, base, mask, route=route)
+        assert torch.equal(gi, want[0]) and torch.equal(gv, want[1])
