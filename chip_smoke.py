@@ -20,7 +20,11 @@ Phases, one JSON line each:
               two routes (``lastlayer_grad``, ``bound_max``,
               ``corr_argmax``: the same bits; ``fl_gain_argmax_otf``: the
               tensor cores and the FFMA tiles, each against an f64 scan
-              at the CRAIG paths' shapes) on each, timed;
+              at the CRAIG paths' shapes; ``sqdist``: the mirrored tensor
+              cores or their full grid and the FFMA tiles, each against an
+              f64 sqdist, ``sqdist(a, a)`` symmetric bit for bit) on each,
+              timed; the one-operation floor of the timing (an empty kernel,
+              a one-element ``torch.sum``);
   4. trainer  ``mlp()`` at full width on 45 000 rows: per-class GRAD-MATCH
               (budget 0.1, 2 epochs, R = 1) on the batched engine
               (``corr_batched``, ``corr_argmax_batched``), then one
@@ -51,8 +55,9 @@ Phases, one JSON line each:
               similarity is rebuilt on the fly), one ``craig-lazy-otf``,
               ``craig-stochastic``, ``craig-pb`` and ``glister`` selection,
               and lazy CRAIG over a resident similarity built by
-              ``sqdist`` (``craig-resident``).  Then, on the card: the resident and the
-              on-the-fly lazy selections with the kernels and with the plain
+              ``sqdist`` (``craig-resident``, the mirrored tensor cores).
+              Then, on the card: the resident and the on-the-fly lazy
+              selections with the kernels and with the plain
               versions (same 4 500 picks, ``err`` to rtol 1e-5), and the
               dense oracle against the resident lazy greedy at k = 256;
   8. stream   streaming GRAD-MATCH (``gradmatch-stream``) at the same data
@@ -98,7 +103,10 @@ published memory bandwidth and its operations over the card's published
 rate for their type: f32 outside the tensor cores, for ``hidden_grad_tc``
 its two bf16 passes at the dense bf16 tensor-core rate, and for
 ``fl_gain_argmax_otf_tc`` its three TF32 passes at the dense TF32 rate or
-its epilogue's f32 operations, whichever take longer.
+its epilogue's f32 operations, whichever take longer, and for ``sqdist``
+on the tensor cores its three TF32 passes (one for bf16) over the pairs
+the call needs or its bytes, whichever take longer (the f32 bound
+beside it).
 Where the work depends on the data (a masked argmax, ``bound_max``'s
 masked-in rows), the bytes and operations are the ones this run's masks
 need.
@@ -170,7 +178,7 @@ KERNEL_SOURCES = {
                            "src/repro/kernels/fl_gain.py:174"),
     "fl_gain_argmax_otf_tc": ("src/repro_torch/kernels/csrc/fl_gain_tc.cu",
                               "src/repro/kernels/fl_gain.py:174"),
-    "sqdist": ("src/repro_torch/kernels/csrc/sqdist.cu",
+    "sqdist": ("src/repro_torch/kernels/csrc/sqdist_tc.cu",
                "src/repro/kernels/sqdist.py:51"),
     "bound_max": ("src/repro_torch/kernels/csrc/bound_max.cu",
                   "src/repro/kernels/corr.py:138"),
@@ -313,7 +321,13 @@ def phase_build() -> None:
          ptxas_corr_batched_rows=ptxas_report(log, "row_tiles_kernel"),
          ptxas_corr_batched_warps=ptxas_report(log, "corr_batched_kernel"),
          ptxas_corr_argmax_batched_warps=ptxas_report(
-             log, "corr_argmax_batched_kernel"))
+             log, "corr_argmax_batched_kernel"),
+         ptxas_sqdist_tc=ptxas_report(log, "sqdist_tc_kernel"),
+         wgmma_serialized=log.count("C7520"))
+    # ptxas fences every wgmma of a kernel whose accumulators it must
+    # guard on a divergent path (C7520); none of the port's may.
+    check("C7520" not in log, "ptxas serialized the wgmmas of a kernel "
+          "(C7520 in the build log)")
 
 
 def device_ops(torch, fn) -> int:
@@ -355,6 +369,14 @@ def phase_kernels(torch, np, card: dict) -> dict:
                 "bytes" if by_bytes >= by_ops else "operations")
 
     records = {name: {} for name in KERNEL_SOURCES}
+
+    # The one-operation floor of this timing (device_ms): an empty kernel
+    # (torch.cuda._sleep of 0 cycles) and a one-element torch.sum, each a
+    # single launch queued behind the sleep kernel.
+    one = torch.ones((1,), device=dev)
+    emit("floor", empty_kernel_ms=device_ms(
+        torch, lambda: torch.cuda._sleep(0)),
+         one_element_sum_ms=device_ms(torch, lambda: one.sum()))
 
     # -- corr: per-class (45 000, 65) and PB (703, 10) f32, wide (8192, 512)
     #    f32 and bf16, ragged ------------------------------------------------
@@ -609,8 +631,9 @@ def phase_kernels_fl(torch, np, card: dict, records: dict) -> None:
     #    rows, then ragged n, all masked, a planted tie ---------------------
     for n in (ROWS, 1, 129, 4097):
         g = t(rng.standard_normal((n, 65)).astype(np.float32))
-        # Built as the resident path builds it: sqdist is bitwise symmetric
-        # (fmaf(a, b, c) == fmaf(b, a, c)), so row j is column j.
+        # Built as the resident path builds it: sqdist(g, g) is bitwise
+        # symmetric (the mirrored tensor cores write each pair's one value
+        # to both places), so row j is column j.
         sim = greedy.build_sim(g, dist_fn=sq_k.sqdist)
         cover = t(np.abs(rng.standard_normal(n)).astype(np.float32) * 4)
         mask = t(rng.random(n) < 0.7)
@@ -767,8 +790,27 @@ def phase_kernels_fl(torch, np, card: dict, records: dict) -> None:
         del g64
         torch.cuda.empty_cache()
 
-    # -- sqdist: the resident build of the main path's proxies (f32), and a
-    #    ragged bf16 case --------------------------------------------------
+    # -- sqdist: the resident build of the main path's proxies (f32; a is b,
+    #    the mirrored tensor cores), a ragged bf16 case and a small one.
+    #    Each call at the plan's route against the plain version; then each
+    #    route that takes the shape timed, and its error over an f64 sqdist
+    #    of the same inputs (of |a_i|^2 + |b_j|^2, the terms the expanded
+    #    form cancels). -------------------------------------------------
+    def sq_f64_err(a, bb, got):
+        """max |got - exact| / (|a_i|^2 + |b_j|^2) over an f64 sqdist of
+        the same inputs, in row blocks."""
+        a64, b64 = a.double(), bb.double()
+        an64, bn64 = (a64 * a64).sum(1), (b64 * b64).sum(1)
+        worst = 0.0
+        for lo in range(0, a.shape[0], 4096):
+            scale = an64[lo:lo + 4096, None] + bn64[None, :]
+            exact = (scale - 2.0 * (a64[lo:lo + 4096] @ b64.T)).clamp_min_(
+                0.0)
+            worst = max(worst, float(((got[lo:lo + 4096].double() - exact)
+                                      .abs_() / scale).max()))
+            del scale, exact
+        return worst
+
     for n, m, d, dt in ((ROWS, ROWS, 65, "float32"),
                         (4097, 1000, 130, "bfloat16"),
                         (129, 65, 3, "float32")):
@@ -776,26 +818,57 @@ def phase_kernels_fl(torch, np, card: dict, records: dict) -> None:
             getattr(torch, dt))
         bb = a if n == m else t(rng.standard_normal((m, d)).astype(
             np.float32)).to(getattr(torch, dt))
+        plan = asdict(sq_k.sqdist_plan(n, m, d, a.element_size(), bb is a))
         got = sq_k.sqdist(a, bb)
         want = ref.sqdist_ref(a, bb)
         err, ok = close(got, want)
         check(ok, f"sqdist ({n}, {m}, {d}) {dt}: max abs err {err}")
         check(float(got.min()) >= 0.0, "sqdist gave a negative distance")
+        if bb is a:
+            # the resident build's symmetry, which the lazy greedy's block
+            # refresh (row sums) and the scan (column sums) rely on
+            check(torch.equal(got, got.T), f"sqdist(a, a) ({n}, {d}) is not "
+                  "symmetric bit for bit")
         del got, want
         torch.cuda.empty_cache()
-        ms = device_ms(torch, lambda: sq_k.sqdist(a, bb), reps=10, warmup=2)
+        routes = {}
+        for route in ((plan["route"], "ffma") if plan["route"] != "ffma"
+                      else ("ffma", "tc")):
+            got = sq_k.sqdist(a, bb, route=route)
+            check(torch.equal(got, sq_k.sqdist(a, bb, route=route)),
+                  f"sqdist ({n}, {m}, {d}) {route}: not the same bits twice")
+            routes[route] = dict(f64_rel_err=sq_f64_err(a, bb, got))
+            del got
+            torch.cuda.empty_cache()
+            routes[route]["ms"] = device_ms(
+                torch, lambda: sq_k.sqdist(a, bb, route=route), reps=10,
+                warmup=2)
+        ms = routes[plan["route"]]["ms"]
         plain = device_ms(torch, lambda: ref.sqdist_ref(a, bb), reps=5,
                           warmup=1)
         lib = (device_ms(torch, lambda: torch.cdist(a, bb).square(), reps=5,
                          warmup=1) if dt == "float32" else None)
-        b, by = bound(a.element_size() * (n + m) * d + 4 * n * m,
-                      2 * n * m * d + 4 * n * m)
+        ops_ = device_ops(torch, lambda: sq_k.sqdist(a, bb))
+        nbytes = a.element_size() * (n + (0 if bb is a else m)) * d + 4 * n * m
+        b, by = bound(nbytes, 2 * n * m * d + 4 * n * m)
+        # The tensor cores: three TF32 passes over d (one for bf16, exact in
+        # TF32) at the dense TF32 rate, over the pairs this call needs (each
+        # unordered pair once when a is b), or the bytes, whichever take
+        # longer.
+        pairs = n * (n + 1) // 2 if bb is a else n * m
+        passes = 3 if dt == "float32" else 1
+        ops_tc = passes * 2 * pairs * d / tf32 * 1e3
+        b_tc = max(ops_tc, nbytes / bw * 1e3)
+        by_tc = "bytes" if nbytes / bw * 1e3 >= ops_tc else "operations"
         emit("kernels", kernel="sqdist", shape=[n, m, d], dtype=dt,
-             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-             bound_ms=b, bound_by=by)
+             max_abs_err=err, plan=plan, routes=routes, ms=ms,
+             plain_ms=plain, library_ms=lib, device_ops=ops_,
+             bound_ms=b_tc, bound_by=by_tc, f32_bound_ms=b, f32_bound_by=by)
         if n == ROWS:
-            records["sqdist"]["craig-resident"] = record(
-                err, ms, plain, lib, b, by, [n, m, d])
+            records["sqdist"]["craig-resident"] = dict(
+                record(err, ms, plain, lib, b_tc, by_tc, [n, m, d]),
+                f32_bound_ms=b, plan_route=plan["route"], routes=routes,
+                device_ops=ops_)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1804,6 +1877,9 @@ def phase_craig(torch, np, train, val) -> dict:
                       f"kernel {name} was not launched on the {path} path")
         check(paths["craig-resident"]["launches"]["sqdist"] == 1,
               "the resident path built its similarity more than once")
+        check(paths["craig-resident"]["routes"]["sqdist/tc-sym"] == 1,
+              f"craig-resident: sqdist left the mirrored tensor cores: "
+              f"{paths['craig-resident']['routes']}")
         # The plans' routes: the on-the-fly scans on the tensor cores (the
         # FFMA kernel never), GLISTER's argmax on the row tiles.
         for path in ("craig-lazy", "craig-lazy-otf"):

@@ -121,6 +121,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                                              i32, i32, p, p, p, p, p, p]
     lib.rt_sqrt_rn_mismatches.argtypes = [i32, p, p]
     lib.rt_sqdist.argtypes = [i32, p, p, i32, p, p, i64, i64, i64, p, p]
+    lib.rt_sqdist_tc.argtypes = [i32, p, p, i32, p, p, i64, i64, i64, i32,
+                                 i32, i32, p, p, p]
     lib.rt_bound_max.argtypes = [i32, p, i32, p, p, p, ctypes.c_float, p, p,
                                  i64, i64, i32, i32, i32, i32, i32, i64, p, p,
                                  p, p, p]
@@ -132,8 +134,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.rt_corr_argmax_batched, lib.rt_lastlayer_grad,
                lib.rt_fl_gain_argmax, lib.rt_fl_gain_argmax_otf,
                lib.rt_fl_gain_argmax_otf_tc, lib.rt_sqrt_rn_mismatches,
-               lib.rt_sqdist, lib.rt_bound_max, lib.rt_hidden_grad,
-               lib.rt_hidden_grad_tc):
+               lib.rt_sqdist, lib.rt_sqdist_tc, lib.rt_bound_max,
+               lib.rt_hidden_grad, lib.rt_hidden_grad_tc):
         fn.restype = i32
     lib.rt_error_string.argtypes = [i32]
     lib.rt_error_string.restype = ctypes.c_char_p

@@ -1,12 +1,14 @@
 """The launch plans of ``lastlayer_grad``, ``bound_max``,
-``fl_gain_argmax_otf`` and ``corr_argmax`` as pure functions, on the CPU.
+``fl_gain_argmax_otf``, ``corr_argmax`` and ``sqdist`` as pure functions, on
+the CPU.
 
 ``lastlayer_grad.lastlayer_plan`` and ``corr.bound_max_plan`` choose each
 call's route (the tile route, rows in flight by bulk copy, or the kernel it
 replaced) from the shapes and the addresses alone; ``fl_gain.
 fl_gain_otf_plan`` chooses the tensor cores or the FFMA tiles, and
 ``corr.corr_argmax_plan`` the batched argmax's row tiles at B = 1 or the
-warp kernel.  These tests hold which
+warp kernel, ``sqdist.sqdist_plan`` the mirrored tensor cores, their full
+grid or the FFMA tiles.  These tests hold which
 route each shape and address takes, that every tile's bulk copies are
 multiples of 16 bytes, that the layouts fit a block's 227 KB of shared
 memory and that the grids stay within their limits; and, in numpy, the two
@@ -447,3 +449,125 @@ def test_corr_argmax_rows_plan_is_the_batched_plan_at_b1(n, p):
     assert got == corr_kernel._row_plan(n, p, 1, True, p % 4 == 0, SMS)
     assert got.route == "rows" and 1 <= got.grid < 2 ** 31
     assert got.smem <= corr_kernel.BLOCK_SMEM
+
+
+# -- sqdist ------------------------------------------------------------------
+
+def test_sqdist_plan_mirrors_the_kernels_constants():
+    """The plan's constants are csrc/sqdist_tc.cu's (which refuses any
+    launch that does not fit them)."""
+    from repro_torch.kernels import sqdist as sq
+    for name, value in (("kSqTile", sq.SQ_TILE),
+                        ("kSqMaxK8F32", sq.SQ_MAX_K8[4]),
+                        ("kSqMaxK8Bf16", sq.SQ_MAX_K8[2]),
+                        ("kSqStageBytes", sq.SQ_STAGE_BYTES),
+                        ("kSqAlignSlack", sq.SQ_ALIGN_SLACK),
+                        ("kSqStaticSmem", sq.SQ_STATIC_SMEM),
+                        ("kSqMaxSmem", sq.BLOCK_SMEM)):
+        assert _constant("sqdist_tc.cu", name) == value, name
+    assert _constant("dot_tile.cuh", "kTileI") == sq.FFMA_TILE[0]
+    assert _constant("dot_tile.cuh", "kTileJ") == sq.FFMA_TILE[1]
+
+
+def test_sqdist_plan_by_shape_dtype_and_aliasing():
+    """The resident build's sqdist(a, a) at (45 000, 65) f32 takes the
+    mirrored tensor cores: the 62 128 tiles I <= J of 128 x 128 over 132
+    persistent blocks, hi and lo (18 planes), TMA stores (180 000-byte
+    rows); a distinct b the full grid; bf16 rows hi only, their depth
+    rounded up to an even count; ragged m % 4 != 0 the blocks' own stores;
+    small calls and wide rows the FFMA kernel."""
+    from repro_torch.kernels import sqdist as sq
+    plan = sq.sqdist_plan
+    assert plan(45000, 45000, 65, 4, True) == sq.SqdistPlan(
+        "tc-sym", 9, 18, 352 * 353 // 2, 132, 1024 + 65536 + 2 * 18 * 4096,
+        True)
+    assert plan(45000, 45000, 65, 4, False) == sq.SqdistPlan(
+        "tc", 9, 18, 352 * 352, 132, 1024 + 65536 + 2 * 18 * 4096, True)
+    assert plan(45000, 45000, 65, 4, True, route="tc").tiles == 352 * 352
+    bf = plan(4097, 1000, 130, 2, False)
+    assert (bf.route, bf.k8, bf.planes, bf.tiles, bf.tma_store) == (
+        "tc", 18, 18, 33 * 8, True)
+    assert plan(4097, 1000, 129, 2, False).k8 == 18
+    assert plan(4097, 1000, 120, 2, False).k8 == 16
+    assert plan(4097, 1000, 113, 2, False).k8 == 16
+    assert plan(4097, 4097, 65, 4, True).tma_store is False
+    assert plan(4097, 4097, 65, 4, True).route == "tc-sym"
+    # the widest rows each type takes, and one column more
+    assert plan(4097, 4096, 80, 4, False).route == "tc"
+    assert plan(4097, 4096, 81, 4, False).route == "ffma"
+    assert plan(4097, 4096, 160, 2, False).route == "tc"
+    assert plan(4097, 4096, 161, 2, False).route == "ffma"
+    with pytest.raises(ValueError, match="tensor cores"):
+        plan(4097, 4096, 81, 4, False, route="tc")
+    # small calls: the FFMA kernel, unless forced
+    small = plan(129, 65, 3, 4, False)
+    assert small == sq.SqdistPlan("ffma", 0, 0, 2 * 2, 4, 0, False)
+    assert plan(129, 65, 3, 4, False, route="tc").route == "tc"
+    assert plan(1, 1, 1, 4, True, route="tc-sym").tiles == 1
+    with pytest.raises(ValueError, match="a is b"):
+        plan(300, 300, 10, 4, False, route="tc-sym")
+    with pytest.raises(ValueError, match="no route"):
+        plan(300, 300, 10, 4, True, route="warps")
+    with pytest.raises(ValueError, match="FFMA grid"):
+        plan(65535 * 128 + 1, 4, 3, 4, False, route="ffma")
+
+
+def test_sqdist_plan_takes_the_tensor_cores_from_its_threshold(monkeypatch):
+    """Calls of at least TC_MIN_WORK products n m d take the tensor cores
+    (the measured crossovers: 2 048^2 at d 65, 4 096^2 at d 10, the FFMA
+    kernel at 1 024^2 x 65); the plan is cached and follows a changed
+    threshold."""
+    from repro_torch.kernels import sqdist as sq
+    n0 = sq.TC_MIN_WORK // (8 * 1024)
+    assert sq.sqdist_plan(n0, 1024, 8, 4, False).route == "tc"
+    assert sq.sqdist_plan(n0 - 1, 1024, 8, 4, False).route == "ffma"
+    for n, d, route in ((1024, 65, "ffma"), (2048, 65, "tc-sym"),
+                        (2048, 10, "ffma"), (4096, 10, "tc-sym")):
+        assert sq.sqdist_plan(n, n, d, 4, True).route == route, (n, d)
+    first = sq.sqdist_plan(45000, 45000, 65, 4, True, SMS)
+    assert sq.sqdist_plan(45000, 45000, 65, 4, True, SMS) is first
+    monkeypatch.setattr(sq, "TC_MIN_WORK", 45000 * 45000 * 65 + 1)
+    assert sq.sqdist_plan(45000, 45000, 65, 4, True, SMS).route == "ffma"
+    monkeypatch.undo()
+    assert sq.sqdist_plan(45000, 45000, 65, 4, True, SMS) is first
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_sqdist_tc_layouts_fit(itemsize):
+    """For every d up to 200: where the plan takes the tensor cores, the
+    block's operands (A and B, hi and lo for f32), staged boxes and static
+    part fit 227 KB, the depth covers d in k steps of 8 (even for bf16),
+    and one instantiation depth more would not have been needed; where it
+    does not, the depth exceeds the kernel's most."""
+    from repro_torch.kernels import sqdist as sq
+    for d in range(1, 201):
+        got = sq.sqdist_plan(45000, 45000, d, itemsize, True)
+        k8 = -(-d // 8)
+        if got.route == "tc-sym":
+            assert 8 * got.k8 >= d > 8 * (got.k8 - (2 if itemsize == 2 else 1))
+            assert itemsize == 4 or got.k8 % 2 == 0
+            assert got.planes == (2 * got.k8 if itemsize == 4 else got.k8)
+            assert got.smem == sq.sq_smem(got.planes)
+            assert got.smem + sq.SQ_STATIC_SMEM <= sq.BLOCK_SMEM
+        else:
+            assert got.route == "ffma"
+            assert k8 + (k8 % 2 if itemsize == 2 else 0) > sq.SQ_MAX_K8[
+                itemsize]
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 4097, 45000, 10 ** 6])
+@pytest.mark.parametrize("same", [False, True])
+def test_sqdist_plan_grid_within_limits(n, same):
+    """The tile count is the list's, every block gets at least one tile
+    (grid = min(tiles, SMs)), and the ranges cover the list in order."""
+    from repro_torch.kernels import sqdist as sq
+    plan = sq.sqdist_plan(n, n, 65, 4, same, SMS, "tc-sym" if same else "tc")
+    t = -(-n // 128)
+    assert plan.tiles == (t * (t + 1) // 2 if same else t * t)
+    assert plan.grid == min(plan.tiles, SMS)
+    if n <= 4097:
+        walked = [x for b in range(plan.grid)
+                  for x in sq.block_tiles(b, plan.grid, n, n, same)]
+        assert len(walked) == plan.tiles
+        assert all(sq.block_tiles(b, plan.grid, n, n, same)
+                   for b in range(plan.grid))

@@ -160,20 +160,103 @@ def test_wrappers_count_launches_and_reject_bad_input(dev):
 # sqdist, fl_gain_argmax, fl_gain_argmax_otf
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,m,d", [(1, 1, 1), (9, 17, 3), (129, 65, 130),
-                                   (300, 257, 65), (4097, 1000, 130)])
+SQDIST_SHAPES = [(1, 1, 1), (9, 17, 3), (129, 65, 130), (300, 257, 65),
+                 (4097, 1000, 130)]
+
+
+def _sq_routes(d, dtype):
+    """The routes that take an (n, d) call: the FFMA kernel always, the
+    tensor cores up to 80 f32 or 160 bf16 columns."""
+    return ["ffma"] + (["tc"] if d <= (80 if dtype == "float32" else 160)
+                       else [])
+
+
+@pytest.mark.parametrize("n,m,d", SQDIST_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_sqdist_kernel_matches_plain(dev, n, m, d, dtype):
+    """Each route that takes the shape (and the plan's) against the plain
+    version at rtol / atol 1e-4, no negative distance, the same bits on a
+    second call; one launch counted a call, by route."""
     rng = np.random.default_rng(n + m + d)
     a = _t(rng.standard_normal((n, d)).astype(np.float32), dev)
     b = _t(rng.standard_normal((m, d)).astype(np.float32), dev)
     a, b = a.to(getattr(torch, dtype)), b.to(getattr(torch, dtype))
-    got = sqdist_kernel.sqdist(a, b)
     want = ref.sqdist_ref(a, b)
-    torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               rtol=1e-4, atol=1e-4)
-    assert float(got.min()) >= 0.0
+    for route in [None] + _sq_routes(d, dtype):
+        before = sqdist_kernel.launches["sqdist"]
+        routes = dict(sqdist_kernel.sqdist_routes)
+        got = sqdist_kernel.sqdist(a, b, route=route)
+        again = sqdist_kernel.sqdist(a, b, route=route)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=str(route))
+        assert float(got.min()) >= 0.0
+        assert torch.equal(got, again), route
+        assert sqdist_kernel.launches["sqdist"] == before + 2
+        taken = route or sqdist_kernel.sqdist_plan(
+            n, m, d, a.element_size(), False).route
+        assert sqdist_kernel.sqdist_routes[taken] == routes[taken] + 2
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 4097])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sqdist_of_a_with_itself_is_bitwise_symmetric(dev, n, dtype):
+    """sqdist(a, a) on the mirrored tensor cores (each pair computed once,
+    written to both places) equals its transpose bit for bit at ragged n,
+    within rtol / atol 1e-4 of the plain version, the same bits twice; so
+    does the plan's route and the FFMA kernel (fmaf is commutative)."""
+    rng = np.random.default_rng(3 * n)
+    a = _t(rng.standard_normal((n, 65)).astype(np.float32), dev).to(
+        getattr(torch, dtype))
+    want = ref.sqdist_ref(a, a)
+    for route in ("tc-sym", None, "ffma"):
+        s = sqdist_kernel.sqdist(a, a, route=route)
+        torch.cuda.synchronize()
+        assert torch.equal(s, s.T), route
+        assert torch.equal(s, sqdist_kernel.sqdist(a, a, route=route))
+        np.testing.assert_allclose(s.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=str(route))
+    assert sqdist_kernel.sqdist_plan(4097, 4097, 65, 4, True).route == (
+        "tc-sym")
+
+
+@pytest.mark.parametrize("n,m,d", [(300, 257, 65), (4097, 1000, 130),
+                                   (1000, 1000, 160)])
+def test_sqdist_bf16_exact_on_a_grid(dev, n, m, d):
+    """bf16 rows on a 1/8 grid widen into TF32 exactly and their products
+    sum exactly in f32: the tensor cores give the exact distances (those of
+    an f64 computation), bit for bit, mirrored or not."""
+    rng = np.random.default_rng(n + 2 * m + d)
+    a = _t(np.round(rng.standard_normal((n, d)) * 8) / 8, dev).to(
+        torch.bfloat16)
+    b = _t(np.round(rng.standard_normal((m, d)) * 8) / 8, dev).to(
+        torch.bfloat16)
+    for x, y, route in ((a, b, "tc"), (a, a, "tc-sym")):
+        x64, y64 = x.double(), y.double()
+        exact = ((x64 * x64).sum(1)[:, None] + (y64 * y64).sum(1)[None, :]
+                 - 2 * x64 @ y64.T).clamp_min(0).float()
+        got = sqdist_kernel.sqdist(x, y, route=route)
+        torch.cuda.synchronize()
+        assert torch.equal(got, exact), route
+
+
+@pytest.mark.parametrize("n,m,same", [(4097, 4097, True), (4097, 1000, False),
+                                      (20000, 512, False)])
+def test_sqdist_tensor_cores_f64_error(dev, n, m, same):
+    """Against an f64 sqdist of the same f32 inputs both routes stay within
+    1e-6 of |a_i|^2 + |b_j|^2 (the size of the terms the expanded form
+    cancels; 3xTF32 keeps f32 grade)."""
+    rng = np.random.default_rng(n + m)
+    a = _t(rng.standard_normal((n, 65)).astype(np.float32), dev)
+    b = a if same else _t(rng.standard_normal((m, 65)).astype(np.float32),
+                          dev)
+    a64, b64 = a.double(), b.double()
+    an, bn = (a64 * a64).sum(1), (b64 * b64).sum(1)
+    exact = (an[:, None] + bn[None, :] - 2 * a64 @ b64.T).clamp_min(0)
+    scale = an[:, None] + bn[None, :]
+    for route in ("tc-sym" if same else "tc", "ffma"):
+        got = sqdist_kernel.sqdist(a, b, route=route).double()
+        assert float(((got - exact).abs() / scale).max()) <= 1e-6, route
 
 
 def _fl_inputs(dev, n, d, seed):
@@ -247,8 +330,9 @@ def test_fl_gain_argmax_otf_kernel_matches_plain(dev, n, d):
 
 
 def test_craig_on_the_card_kernels_vs_plain(dev):
-    """Lazy CRAIG, resident (sqdist + fl_gain_argmax) and on the fly,
-    with the kernels and with the plain versions: the same picks."""
+    """Lazy CRAIG, resident (sqdist on the mirrored tensor cores +
+    fl_gain_argmax) and on the fly, with the kernels and with the plain
+    versions: the same picks."""
     rng = np.random.default_rng(40)
     g = _t(np.round(rng.standard_normal((3000, 20)) * 8).astype(np.float32)
            / 8, dev)
@@ -257,7 +341,7 @@ def test_craig_on_the_card_kernels_vs_plain(dev):
                dict(on_the_fly=True)):
         ops.reset_launch_counts()
         a = craig.craig(g, 150, method="lazy", l_max=lm, **kw)
-        counts = ops.launch_counts()
+        counts, routes = ops.launch_counts(), ops.launch_routes()
         ops.set_backend("ref")
         try:
             b = craig.craig(g, 150, method="lazy", l_max=lm, **kw)
@@ -271,6 +355,7 @@ def test_craig_on_the_card_kernels_vs_plain(dev):
             assert counts["fl_gain_argmax_otf"] == 0
         else:
             assert counts["sqdist"] == 1 and counts["fl_gain_argmax"] >= 1
+            assert routes["sqdist/tc-sym"] == 1
 
 
 def _bound_case(n, d, seed, dev, dtype="bfloat16", mask_frac=0.8):

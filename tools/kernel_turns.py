@@ -4,7 +4,7 @@ comparing two trees on one card in turns.
 
     python3 tools/kernel_turns.py [--src DIR] [--save FILE] [--compare FILE]
                                   [--kernels fl_gain_argmax_otf,corr_argmax,
-                                             corr_argmax_batched]
+                                             corr_argmax_batched,sqdist]
     python3 tools/kernel_turns.py --routes [--kernels ...]
     python3 tools/kernel_turns.py --picks [--src DIR] [--save F] [--compare F]
                                   [--kernels ...]
@@ -32,7 +32,11 @@ seed with numpy, so two trees see the same bits.  ``--kernels`` names them
   path's (1 024, 64, 10), int64 labels; ``bound_max`` at the streaming
   arenas (88 064, 10) and (86 016, 65) bf16, their masks with the empty
   slots and a tenth of the cached rows off, ``abs`` on, the threshold the
-  median live bound.
+  median live bound;
+- ``sqdist`` at the craig-resident path's ``sqdist(a, a)`` of (45 000, 65)
+  f32 and at ``chip_smoke.py``'s other two cases, (4 097, 1 000, 130) bf16
+  and (129, 65, 3) f32; the (45 000, 45 000) output is kept as a 64-bit
+  digest of its bits with its diagonal and first and last rows.
 
 ``--save`` keeps the outputs, ``--compare`` says whether they equal a saved
 run's bit for bit.  To compare a parent commit with this one, unpack it
@@ -45,22 +49,25 @@ tree builds its own library.  Device times as ``chip_smoke.py`` takes them
 the route each plan picks: ``corr_argmax`` over n at widths 10 and 65 and
 over the width at 45 000 rows, from an aligned pool and from one off a
 16-byte boundary; ``fl_gain_argmax_otf`` over d and n; ``lastlayer_grad``
-and ``bound_max`` over n, d and C.  The data behind the plans' rules.
+and ``bound_max`` over n, d and C; ``sqdist`` over n, d, the dtype and
+whether a is b (each route that takes the call: the mirrored tensor cores,
+their full grid, the FFMA tiles).  The data behind the plans' rules.
 
 ``--picks`` runs selections through the entry points instead, on the main
 path's data (45 000 rows of ``make_classification``) and a seeded
 ``mlp()``'s proxies (``lastlayer_grad`` on all 45 000 rows), each with its
 seconds (each selection ``--repeats`` times; the outputs of every repeat
-must equal the first's): for ``fl_gain_argmax_otf`` and ``corr_argmax``
-lazy CRAIG over the
-per-gradient proxies (``craig-lazy``) and over the bias proxies
-(``craig-lazy-otf``), and GLISTER over the bias proxies; for the other two
-per-class GRAD-MATCH, and streaming GRAD-MATCH over the bias proxies (the
-(n, 10) arena) and over the per-gradient proxies (the (n, 65) arena), with
-their ``SelectStats``.  ``--save`` / ``--compare`` then hold the proxies,
-picks, weights (and stats, or each CRAIG round's gain) of two trees
-against each other; where two trees' picks part, the first round that
-differs and both trees' picks and gains there.
+must equal the first's): for ``fl_gain_argmax_otf`` and ``corr_argmax`` lazy
+CRAIG over the per-gradient proxies (``craig-lazy``) and over the bias
+proxies (``craig-lazy-otf``), and GLISTER over the bias proxies; for the
+other two per-class GRAD-MATCH, and streaming GRAD-MATCH over the bias
+proxies (the (n, 10) arena) and over the per-gradient proxies (the (n, 65)
+arena), with their ``SelectStats``; for ``sqdist`` lazy CRAIG over the
+similarity it builds resident from the per-gradient proxies (``craig-
+resident``). ``--save`` / ``--compare`` then hold the proxies, picks,
+weights (and stats, or each CRAIG round's gain) of two trees against each
+other; where two trees' picks part, the first round that differs and both
+trees' picks and gains there.
 
 One JSON line a shape, then one with the card's name and power limit.
 Needs a card and ``nvcc``.
@@ -121,6 +128,8 @@ def card_line() -> None:
 
 
 FL_SHAPES = ((45_000, 65), (45_000, 10))
+SQ_CASES = ((45_000, 45_000, 65, "float32"), (4_097, 1_000, 130, "bfloat16"),
+            (129, 65, 3, "float32"))
 DEFAULT_KERNELS = "fl_gain_argmax_otf,corr_argmax"
 
 
@@ -215,6 +224,33 @@ def argmax_batched_cases(torch, np, dev):
     return cases
 
 
+def sq_inputs(torch, np, n, m, d, dt, dev):
+    """a and b of a ``chip_smoke.py`` sqdist case; b is a when n == m."""
+    rng = np.random.default_rng(n + m + d)
+    a = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(
+        dev).to(getattr(torch, dt))
+    if n == m:
+        return a, a
+    return a, torch.from_numpy(rng.standard_normal((m, d)).astype(
+        np.float32)).to(dev).to(getattr(torch, dt))
+
+
+def digest(torch, s) -> list:
+    """A 64-bit digest of a matrix's bits (a weighted sum of its elements'
+    int32 patterns, wrapping), with its diagonal and its first and last
+    rows: two trees' outputs compared without holding both."""
+    gen = torch.Generator(device=s.device).manual_seed(0)
+    cols = torch.randint(1, 2 ** 62, (s.shape[1],), generator=gen,
+                         device=s.device) | 1
+    acc = torch.zeros((), dtype=torch.int64, device=s.device)
+    for lo in range(0, s.shape[0], 4096):
+        blk = s[lo:lo + 4096].contiguous().view(torch.int32).long()
+        rows = torch.arange(lo, lo + blk.shape[0], device=s.device
+                            ) * 2654435761 + 1
+        acc += (blk * cols * rows[:, None]).sum()
+    return [acc, s.diagonal(), s[0], s[-1]]
+
+
 def wall_us(torch, fn, calls: int = 2000) -> float:
     """Wall microseconds a call of ``fn`` queued back to back: the host's
     work a call where it exceeds the card's."""
@@ -235,8 +271,9 @@ def turns(torch, np, device_ms, args) -> None:
     dev = torch.device("cuda")
     outs = {}
 
-    def timed(kernel, key, shape, fn, reps=30, wall=False, **extra):
-        outs[key] = fn()
+    def timed(kernel, key, shape, fn, reps=30, wall=False, keep=None,
+              **extra):
+        outs[key] = fn() if keep is None else keep(fn())
         ms = [device_ms(torch, fn, reps=reps, warmup=2)
               for _ in range(args.repeats)]
         if wall:
@@ -275,6 +312,16 @@ def turns(torch, np, device_ms, args) -> None:
                              dev)
             timed("bound_max", f"bound_max {n}", [n, d],
                   lambda: corr_k.bound_max(*a, absolute=True))
+    if "sqdist" in args.kernels:
+        from repro_torch.kernels import sqdist as sq_k
+        for n, m, d, dt in SQ_CASES:
+            a, b = sq_inputs(torch, np, n, m, d, dt, dev)
+            timed("sqdist", f"sqdist {n} {m} {d}", [n, m, d],
+                  lambda: sq_k.sqdist(a, b), reps=10, dtype=dt,
+                  keep=(lambda s: digest(torch, s)) if n == ROWS else
+                  (lambda s: [s]))
+            del a, b
+            torch.cuda.empty_cache()
     outs = {k: [t.cpu() for t in v] for k, v in outs.items()}
     if args.save:
         torch.save(outs, args.save)
@@ -314,6 +361,13 @@ def picks(torch, args) -> None:
             "craig-lazy-otf": lambda: sel_lib.select("craig-lazy-otf", None,
                                                      bias, k),
             "glister": lambda: sel_lib.select("glister", None, bias, k)})
+    if "sqdist" in args.kernels:
+        from repro_torch.core import craig as craig_lib
+        from repro_torch.kernels import ops
+        lm = greedy.default_l_max(pcg)
+        runs["craig-resident"] = lambda: craig_lib.craig(
+            pcg, k, method="lazy", on_the_fly=False, dist_fn=ops.sqdist,
+            l_max=lm)
     if "lastlayer_grad" in args.kernels or "bound_max" in args.kernels:
         runs.update({
             "gradmatch": lambda: sel_lib.select(
@@ -431,6 +485,36 @@ def routes(torch, np, device_ms, args) -> None:
                               "ms": ms,
                               "plan": vars(fl_k.fl_gain_otf_plan(n, d))}),
                   flush=True)
+    if "sqdist" in args.kernels:
+        from repro_torch.kernels import sqdist as sq_k
+        cases = [(n, n, d, "float32", True) for d in (10, 65)
+                 for n in (64, 128, 192, 256, 384, 512, 1024, 2048, 4096,
+                           8192, 16384, 45000)]
+        cases += [(n, n // 2, 65, "float32", False)
+                  for n in (128, 256, 512, 1024, 4096, 16384)]
+        cases += [(4097, 1000, 130, "bfloat16", False), (129, 65, 3,
+                                                         "float32", False),
+                  (4096, 4096, 130, "bfloat16", True)]
+        for n, m, d, dt, same in cases:
+            a, b = sq_inputs(torch, np, n, m if not same else n, d, dt, dev)
+            if not same and b is a:
+                b = a.clone()
+            itemsize = a.element_size()
+            ms = {}
+            for route in ("tc-sym", "tc", "ffma"):
+                try:
+                    sq_k.sqdist_plan(n, m, d, itemsize, same, sms, route)
+                except ValueError:
+                    continue
+                ms[route] = device_ms(torch, lambda: sq_k.sqdist(
+                    a, b, route=route), reps=10 if n > 8192 else 30,
+                    warmup=2)
+            plan = sq_k.sqdist_plan(n, m, d, itemsize, same, sms)
+            print(json.dumps({"kernel": "sqdist", "shape": [n, m, d],
+                              "dtype": dt, "same": same, "ms": ms,
+                              "plan": plan.route}), flush=True)
+            del a, b
+            torch.cuda.empty_cache()
     if "lastlayer_grad" in args.kernels:
         for n in (256, 1024, 2048, 4096, 8192, 12288, 16384, 24576, 45000,
                   200000):
@@ -473,7 +557,7 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--kernels", default=DEFAULT_KERNELS,
                     help="comma-separated: fl_gain_argmax_otf, corr_argmax, "
-                    "corr_argmax_batched, lastlayer_grad, bound_max")
+                    "corr_argmax_batched, lastlayer_grad, bound_max, sqdist")
     ap.add_argument("--routes", action="store_true")
     ap.add_argument("--picks", action="store_true")
     args = ap.parse_args()
