@@ -88,6 +88,25 @@ Phases, one JSON line each:
               picks), the kernels', the plain version's and two cuBLAS
               yardsticks' times, and a step's parts timed between syncs
               and traced;
+ 10. partition (after ``stream``, before ``lm`` in the run) partitioned
+              selection and the one-card paths of ``core/distributed.py``,
+              each path's launch counts read on its own:
+              ``gradmatch-partitioned`` trained end to end at the trainer
+              phase's settings but one selection (R = 2; bias proxies, ten
+              class partitions solved as one batched solve, the certified
+              merge over the union):
+              its union ``gradmatch_per_class``'s set, the merged picks
+              inside it, the last selection again with the plain versions
+              (the same picks, or a parting ``agree`` certifies, in a
+              class's solve or the merge); ``partitioned-hash`` and
+              ``-contiguous`` (P 4, k 900, per-gradient proxies) against
+              ``use_pmap=True`` partition by partition, P = 1 against the
+              single solver (k 225); ``partitioned-stream`` (chunks of 1 024)
+              against in-memory contiguous partitioning, partition by
+              partition, then the merge; ``sharded-pb`` (the rank-parallel
+              GRAD-MATCHPB and OMP on (703, 10), with no group and with a
+              one-rank NCCL group) against ``omp_select``; ``fl-pmap`` (the
+              sharded gain scan, k 64) against lazy CRAIG on the fly;
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -115,6 +134,7 @@ need.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -164,6 +184,12 @@ PARTIAL_K = 1024          # rounds of the partial-cache selection
 CRAIG_PATHS = ("craig-lazy", "craig-lazy-otf", "craig-stochastic",
                "craig-pb", "glister", "craig-resident")
 DENSE_K = 256             # rounds of the dense-oracle check
+PART_P = 4                # partitions of the hash, contiguous, stream paths
+PART_K = 900              # their budget: 225 rounds a partition
+PART_PATHS = ("gradmatch-partitioned", "partitioned-hash",
+              "partitioned-contiguous", "partitioned-stream", "sharded-pb",
+              "fl-pmap")
+FL_PMAP_K = 64            # rounds of the device-sharded CRAIG greedy
 
 KERNEL_SOURCES = {
     "corr": ("src/repro_torch/kernels/csrc/corr.cu",
@@ -381,10 +407,16 @@ def phase_kernels(torch, np, card: dict) -> dict:
     # -- corr: per-class (45 000, 65) and PB (703, 10) f32, wide (8192, 512)
     #    f32 and bf16, ragged ------------------------------------------------
     for n, d, dt, paths in ((ROWS, 65, "float32", ("gradmatch",)),
-                            (PB_ROWS, 10, "float32", ("gradmatch-pb",)),
+                            (PB_ROWS, 10, "float32",
+                             ("gradmatch-pb", "sharded-pb")),
                             (STREAM_BUF, 10, "float32",
                              ("gradmatch-stream",)),
-                            (STREAM_BUF, 65, "float32", ("stream-pooled",)),
+                            (STREAM_BUF, 65, "float32",
+                             ("stream-pooled", "partitioned-stream")),
+                            # the certified merges' unions
+                            (K, 10, "float32", ("gradmatch-partitioned",)),
+                            (PART_K, 65, "float32",
+                             ("partitioned-hash", "partitioned-contiguous")),
                             (*WIDE, "float32", ()),
                             (*WIDE, "bfloat16", ()),
                             (1000, 700, "float32", ())):
@@ -467,6 +499,19 @@ def phase_kernels(torch, np, card: dict) -> dict:
     cases.append(("all-masked", g, -r, zeros,
                   torch.zeros((ROWS,), dtype=torch.bool, device=dev), False,
                   ()))
+    # the certified merges, narrow, half the union taken: the class
+    # partitions' union of K bias-proxy rows, the P = 4 unions of PART_K
+    # per-gradient rows
+    mrng = np.random.default_rng(5)
+    for n, d, paths in ((K, 10, ("gradmatch-partitioned",)),
+                        (PART_K, 65, ("partitioned-hash",
+                                      "partitioned-contiguous",
+                                      "partitioned-stream"))):
+        cases.append((f"merge ({n}, {d})",
+                      t(mrng.standard_normal((n, d)).astype(np.float32)),
+                      -t(mrng.standard_normal(d).astype(np.float32)),
+                      torch.zeros((n,), device=dev), t(mrng.random(n) < 0.5),
+                      False, paths))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for what, c, wv, base, mask, absolute, paths in cases:
         err = argmax_case(c, wv, base, mask, absolute, what)
@@ -516,7 +561,8 @@ def phase_kernels(torch, np, card: dict) -> dict:
     #    path's chunks n = 1 024; a tail tile; C = 37 (the warps only).  Each
     #    route the plan can give the shape, against the other bit for bit.
     for n, dh, nc, ldt, paths in ((ROWS, 64, 10, "int64",
-                                   PATHS + CRAIG_PATHS),
+                                   PATHS + CRAIG_PATHS
+                                   + ("gradmatch-partitioned",)),
                                   (ROWS, 64, 10, "int32", ()),
                                   (STREAM_CHUNK, 64, 10, "int64",
                                    ("gradmatch-stream",)),
@@ -886,9 +932,30 @@ def arena_rows(torch, d: int, chunk: int) -> int:
     return cache.cap_rows
 
 
+def partition_arenas(torch) -> list:
+    """The arena validity masks of the streaming partitions' caches
+    (PART_P contiguous ranges of the main path's (45 000, 65) rows, chunks
+    of STREAM_CHUNK, 256 MiB each), by the engine's own warming pass over
+    zeros.  The first partition caches its 11 chunks; each other caches
+    only the slice of a chunk it starts with, whose bucket fixes the slot
+    size (the reference's layout rule), so the arenas differ."""
+    from repro_torch.core import streaming
+    zeros = torch.zeros((ROWS, 65), device="cuda")
+    chunks = streaming.array_chunks(zeros, STREAM_CHUNK)
+    bounds = [ROWS * p // PART_P for p in range(PART_P + 1)]
+    out = []
+    for lo, hi in zip(bounds, bounds[1:]):
+        cache = streaming.ChunkCache(256 << 20, 65)
+        streaming.streaming_target(
+            streaming.subrange_chunks(chunks, lo, hi), cache=cache)
+        out.append(cache.ok.clone())
+    return out
+
+
 def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
     """``bound_max`` against its plain version on the card at the two
-    arenas of the streaming paths, with masks shaped like theirs (empty
+    arenas of the streaming paths and the four of the streaming
+    partitions (``partition_arenas``), with masks shaped like theirs (empty
     slots and taken rows off), ``abs`` off and on, thresholds of -inf, +inf
     and the middle of a gap, an all-masked input and planted ties; on each
     route (the tile route and the row loop) against the other bit for
@@ -921,9 +988,32 @@ def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
                   f"gave {other}, the plan's {got}")
         return got
 
-    for d, chunk, path in ((10, STREAM_CHUNK, "gradmatch-stream"),
-                           (65, 2 * STREAM_CHUNK, "stream-pooled")):
+    def pool_arena(d, chunk):
+        """The streaming paths' arena over the main path's rows, and its
+        mask: the arena holds 44 (or 22) chunks in 86 (or 42) slots, the
+        rest is empty, and a tenth of the cached rows are taken or
+        in-buffer."""
         n = arena_rows(torch, d, chunk)
+
+        def live():
+            used = (ROWS // chunk + 1) * chunk
+            mask = torch.zeros((n,), dtype=torch.bool, device=dev)
+            mask[:used] = t(rng.random(used) > 0.1)
+            mask[ROWS:used] = False
+            return mask
+
+        return n, live
+
+    def partition_arena(ok):
+        """A streaming partition's arena: its cached rows, a tenth taken."""
+        return ok.shape[0], lambda: ok & t(rng.random(ok.shape[0]) > 0.1)
+
+    arenas = [(10, *pool_arena(10, STREAM_CHUNK), "gradmatch-stream"),
+              (65, *pool_arena(65, 2 * STREAM_CHUNK), "stream-pooled")]
+    arenas += [(65, *partition_arena(ok), "partitioned-stream")
+               for ok in partition_arenas(torch)]
+    by_path = {}
+    for d, n, live, path in arenas:
         rows = t(np.round(rng.standard_normal((n, d)) * 8) / 8).to(
             torch.bfloat16)
         r = t((np.round(rng.standard_normal(d) * 8) / 8).astype(np.float32))
@@ -931,12 +1021,7 @@ def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
                   .astype(np.float32))
         errn = t((np.abs(rng.standard_normal(n)) / 700).astype(np.float32))
         acc = d * 2.0 ** -23 * 1.25
-        # The arena holds 44 (or 22) chunks in 86 (or 42) slots: the rest
-        # is empty, and a tenth of the cached rows are taken or in-buffer.
-        used = (ROWS // chunk + 1) * chunk
-        mask = torch.zeros((n,), dtype=torch.bool, device=dev)
-        mask[:used] = t(rng.random(used) > 0.1)
-        mask[ROWS:used] = False
+        mask = live()
         err = 0.0
         for absolute in (False, True):
             s_ = rows.float() @ r
@@ -1012,10 +1097,14 @@ def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
              masked_in=m_in, max_abs_err=err, tolerance=tol,
              ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
              route_ms=route_ms, plan=plan, device_ops=ops)
-        records["bound_max"][path] = dict(
+        by_path.setdefault(path, []).append(dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
             library_ms=None, shape=[n, d], route_ms=route_ms, plan=plan,
-            device_ops=ops)
+            device_ops=ops))
+    # a path that scans several arenas (one a streaming partition) has a
+    # record for each
+    for path, recs in by_path.items():
+        records["bound_max"][path] = recs[0] if len(recs) == 1 else recs
     torch.cuda.synchronize()
 
 
@@ -1082,10 +1171,14 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
 
     # -- corr_batched: c0 of per-class (B = 10) and of the batched phase
     #    (B = 32), the wide regime's new columns (B = 4), ragged, B > 32 --
-    for n, d, b, path in ((ROWS, 65, CLASSES, "gradmatch"),
-                          (ROWS, 65, SERVE_B, "batched"),
-                          (*WIDE, 4, None), (1001, 63, 1, None),
-                          (1001, 63, 3, None), (4097, 12, 40, None)):
+    for n, d, b, paths in ((ROWS, 65, CLASSES, ("gradmatch",)),
+                           (ROWS, 65, SERVE_B, ("batched",)),
+                           (*WIDE, 4, ()), (1001, 63, 1, ()),
+                           (1001, 63, 3, ()), (4097, 12, 40, ()),
+                           # the partition solves' c0
+                           (ROWS, 10, CLASSES, ("gradmatch-partitioned",)),
+                           (ROWS, 65, PART_P, ("partitioned-hash",
+                                               "partitioned-contiguous"))):
         g = t(rng.standard_normal((n, d)).astype(np.float32))
         v = t(rng.standard_normal((b, d)).astype(np.float32))
         got, want = corr_k.corr_batched(g, v), ref.corr_batched_ref(g, v)
@@ -1112,7 +1205,7 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
              max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
              single_launches_ms=one, bound_ms=bd, bound_by=by, plan=plan,
              device_ops=ops)
-        if path:
+        for path in paths:
             records["corr_batched"][path] = record(
                 err, ms, plain, lib, bd, by, [n, d, b], one, plan, ops)
 
@@ -1157,7 +1250,8 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
     n = ROWS
     labels = rng.integers(0, CLASSES, n)
     g = t(rng.standard_normal((n, 65)).astype(np.float32))
-    zeros = {b: torch.zeros((n, b), device=dev) for b in (CLASSES, SERVE_B)}
+    zeros = {b: torch.zeros((n, b), device=dev)
+             for b in (CLASSES, SERVE_B, PART_P)}
     # per-class masks: row i is a candidate of its class only, a tenth taken
     onehot = np.eye(CLASSES, dtype=bool)[labels] & (rng.random((n, 1)) > 0.1)
     cases = [  # (what, mat, w, base, mask, absolute, path)
@@ -1207,6 +1301,24 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
     cases.append(("live -inf below masked rows", g,
                   t(rng.standard_normal((4, 65)).astype(np.float32)),
                   ninf_base, ninf_mask, False, None))
+    # The partition solves, a tenth taken: the trainer's class partitions
+    # on the bias proxies (45 000, 10), and P = 4 hashed (Knuth's hash of
+    # the row id) and contiguous partitions on the per-gradient proxies.
+    cases.append(("class partitions, bias proxies",
+                  t(rng.standard_normal((n, 10)).astype(np.float32)),
+                  t(-rng.standard_normal((CLASSES, 10)).astype(np.float32)),
+                  zeros[CLASSES], t(onehot), False, "gradmatch-partitioned"))
+    ids = np.arange(n, dtype=np.uint64)
+    hashed = ((ids * np.uint64(2654435761)) % np.uint64(1 << 32)
+              % np.uint64(PART_P)).astype(np.int64)
+    for kind, assign in (("hash", hashed),
+                         ("contiguous", np.arange(n) * PART_P // n)):
+        cases.append((f"{kind} partitions", g,
+                      t(-rng.standard_normal((PART_P, 65)).astype(
+                          np.float32)), zeros[PART_P],
+                      t(np.eye(PART_P, dtype=bool)[assign]
+                        & (rng.random((n, 1)) > 0.1)), False,
+                      f"partitioned-{kind}"))
     for what, mat, w, base, mask, absolute, path in cases:
         err, gi = argmax_case(mat, w, base, mask, absolute, what)
         if what.startswith("ties"):
@@ -2218,6 +2330,429 @@ def phase_stream(torch, np, train, val) -> dict:
                                   "stream-pooled": runs["kernels"][1]}}
 
 
+class Recorder:
+    """Record the calls of ``module.name`` while active: (args, kwargs,
+    result) each."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def recording(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
+            return out
+
+        setattr(self.module, self.name, recording)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def picks_of(sel) -> set:
+    return set(sel.indices[sel.mask].tolist())
+
+
+def phase_partition(torch, np, train, val) -> dict:
+    """Partitioned selection (``core/partition.py``) and the one-card paths
+    of ``core/distributed.py`` through their entry points, each path's
+    launch counts read on its own."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.paper import PaperHParams, mlp
+    from repro_torch.core import distributed as dist_lib
+    from repro_torch.core import greedy, omp, partition, streaming
+    from repro_torch.core import selection as sel_lib
+    from repro_torch.core.gradmatch import gradmatch, gradmatch_per_class
+    from repro_torch.core.proxies import per_batch
+    from repro_torch.kernels import ops
+    from repro_torch.train.steps import make_proxy_fn
+    from repro_torch.train.trainer import AdaptiveTrainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    counts, shapes, routes, seconds = {}, {}, {}, {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def measure(path, fn):
+        """fn() with its launch counts read on their own, and its seconds
+        (host clock, synced)."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out, seconds[path] = timed(fn)
+        counts[path] = ops.launch_counts()
+        shapes[path] = ops.launch_shapes()
+        routes[path] = ops.launch_routes()
+        return out
+
+    def check_sel(sel, what, size):
+        w = sel.weights[sel.mask]
+        check(int(sel.mask.sum()) == size,
+              f"{what} kept {int(sel.mask.sum())} rows, not {size}")
+        check(len(picks_of(sel)) == size, f"{what} picked a row twice")
+        check(bool(torch.isfinite(w).all()) and abs(float(w.sum()) - 1)
+              < 1e-4, f"{what} weights are not finite or do not sum to 1")
+        st = sel.stats
+        check(st.merged == int(sel.mask.sum()) and st.union_size >= st.merged,
+              f"{what}: merged {st.merged}, union {st.union_size}, kept "
+              f"{int(sel.mask.sum())}")
+
+    def needs(path, names):
+        for name in names:
+            check(counts[path][name] > 0,
+                  f"kernel {name} was not launched on the {path} path")
+
+    def same_sel(a, b, what, rtol=1e-5):
+        check(torch.equal(a.indices, b.indices) and torch.equal(a.mask,
+                                                                b.mask),
+              f"{what}: the picks differ")
+        check(torch.allclose(a.weights, b.weights, rtol=rtol, atol=1e-7),
+              f"{what}: weights differ by "
+              f"{float((a.weights - b.weights).abs().max())}")
+
+    # 1. gradmatch-partitioned trained end to end at the trainer phase's
+    # settings but one selection (R = 2 over the 2 epochs: the merge's
+    # 4 500 host-bound rounds cost ~45 s a selection): bias proxies
+    # (45 000, 10), one partition a class; the selection's proxies, union
+    # and partition solve recorded
+    tcfg = TrainerConfig(strategy="gradmatch-partitioned", budget=BUDGET,
+                         epochs=2, batch_size=BATCH,
+                         hp=PaperHParams(select_every=2), eval_every=1)
+    trainer = AdaptiveTrainer(mlp(), tcfg, train, val)
+    model = trainer.init_model()
+    with Recorder(sel_lib, "select") as sels, \
+            Recorder(partition, "_certified_merge") as merges, \
+            Recorder(omp, "omp_select_batched") as solves:
+        rep = measure("gradmatch-partitioned", lambda: trainer.run(model))
+    seconds["gradmatch-partitioned"] = rep.selection_seconds
+    path = "gradmatch-partitioned"
+    needs(path, ("corr_batched", "corr_argmax_batched", "corr",
+                 "corr_argmax", "lastlayer_grad"))
+    check(rep.selection_rounds == 1 and len(sels) == 1,
+          "expected one selection round")
+    check(rep.subset_size == K, f"{path} kept {rep.subset_size} rows")
+    check(np.isfinite(rep.final_acc) and rep.final_acc > 0.2,
+          f"{path} final accuracy {rep.final_acc} is not above 0.2")
+    per_sel = []
+    for (args, kw, sel), merge in zip(sels, merges):
+        proxies, labels = args[2], kw["labels"]
+        check_sel(sel, path, K)
+        check(sel.stats.kind == "class" and sel.stats.num_parts == CLASSES,
+              f"{path}: {sel.stats.kind} partitions")
+        union = set(merge[0][1].tolist())
+        pc, pc_s = timed(lambda: gradmatch_per_class(proxies, labels,
+                                                     CLASSES, args[3]))
+        check(union == picks_of(pc), f"{path}: the union of the partition "
+              "picks is not gradmatch_per_class's set")
+        check(picks_of(sel) <= union, f"{path}: merged picks off the union")
+        per_sel.append(dict(union_size=sel.stats.union_size,
+                            merged=sel.stats.merged, err=float(sel.err),
+                            per_class_seconds=pc_s))
+
+    # the last selection again with the plain versions: the same picks, or
+    # a parting agree() certifies, in the partition solve or the merge
+    (args, kw, sel) = sels[-1]
+    ops.set_backend("ref")
+    try:
+        with Recorder(partition, "_certified_merge") as ref_merges, \
+                Recorder(omp, "omp_select_batched") as ref_solves:
+            plain, plain_s = timed(lambda: sel_lib.select(*args, **kw))
+    finally:
+        ops.set_backend(None)
+    proxies = args[2]
+    parted = None
+    if not (torch.equal(sel.indices, plain.indices)
+            and torch.equal(sel.mask, plain.mask)):
+        (s_args, s_kw, got), (_, _, want) = solves[-1], ref_solves[-1]
+        pool, targets = s_args[0], s_args[1]
+        differ = ((got[0] != want[0]) | (got[2] != want[2])).any(1)
+        if bool(differ.any()):
+            # a class's partition solve parts: agree() on that problem
+            c = int(differ.nonzero()[0, 0])
+
+            def solve_class(t, mode):
+                ops.set_backend(mode)
+                try:
+                    out = omp.omp_select_batched(pool, targets, t, **s_kw)
+                finally:
+                    ops.set_backend(None)
+                return tuple(x[c] for x in out)
+
+            parted = dict(at="partition solve", problem=c, **agree(
+                torch, pool, targets[c], tuple(x[c] for x in got),
+                tuple(x[c] for x in want), lambda t: solve_class(t, None),
+                lambda t: solve_class(t, "ref"), f"{path} class {c}"))
+        else:
+            # the same union: agree() on the merge problem
+            (m_args, m_kw, m_got), (_, _, m_want) = merges[-1], \
+                ref_merges[-1]
+            rows, gids, target = m_args[0], m_args[1], m_args[2]
+
+            def merge_of(t, mode):
+                ops.set_backend(mode)
+                try:
+                    return partition._certified_merge(rows, gids, target, t,
+                                                      *m_args[4:])[:4]
+                finally:
+                    ops.set_backend(None)
+
+            parted = dict(at="merge", **agree(
+                torch, proxies, target, m_got[:4], m_want[:4],
+                lambda t: merge_of(t, None), lambda t: merge_of(t, "ref"),
+                f"{path} merge"))
+    else:
+        check(abs(float(sel.err) - float(plain.err))
+              <= 1e-5 * abs(float(plain.err)),
+              f"{path}: err {float(sel.err)} with the kernels, "
+              f"{float(plain.err)} with the plain versions")
+    emit("partition", path=path, rows=train.n, budget=BUDGET, epochs=2,
+         select_every=2, selection_rounds=rep.selection_rounds,
+         selection_seconds=rep.selection_seconds,
+         wall_seconds=rep.wall_seconds, final_acc=rep.final_acc,
+         subset_size=rep.subset_size, selections=per_sel,
+         plain_selection_seconds=plain_s, err_kernels=float(sel.err),
+         err_plain=float(plain.err), kernels_vs_plain_parted=parted,
+         launches=counts[path], routes=routes[path])
+
+    # 2. P = 4 hashed and contiguous partitions of the per-gradient proxies
+    # (45 000, 65) at k PART_K; each against the device-grouped path, and
+    # P = 1 against the single solver.  The paths run other arithmetic
+    # (one batched solve of P problems against P solves of one; a batched
+    # solve against omp_select), so each partition's problem is held by
+    # agree(): the same picks, or a parting at the f32 noise floor.  With
+    # no parting, the unions and so the merges are the same.
+    pcg, bias = make_proxy_fn(model)(train.x, train.y)
+    n = pcg.shape[0]
+
+    def rows_of(t, solve, p):
+        return tuple(x[p] for x in solve(t))
+
+    def by_partition(what, targets, got, want, solve_got, solve_want):
+        """agree() on each partition's problem (global ids); the partings
+        it certified."""
+        out = []
+        for p in range(targets.shape[0]):
+            rec = agree(torch, pcg, targets[p], tuple(x[p] for x in got),
+                        tuple(x[p] for x in want),
+                        lambda t, p=p: rows_of(t, solve_got, p),
+                        lambda t, p=p: rows_of(t, solve_want, p),
+                        f"{what}, partition {p}")
+            if rec["parted_at"] is not None:
+                out.append({"partition": p, **rec})
+        return out
+
+    def batched_of(call):
+        """The default path's partition solve, and its solve at t rounds."""
+        args, kw, out = call
+        return out, lambda t: omp.omp_select_batched(*args[:2], t, **kw)
+
+    def global_ids(plan, idx):
+        """Partition-local ids (-1 unused) to global ids."""
+        gid = [np.flatnonzero(plan.assign == p) if plan.assign is not None
+               else np.arange(plan.bounds[p], plan.bounds[p + 1])
+               for p in range(plan.num_parts)]
+        loc = idx.cpu().numpy()
+        return torch.as_tensor(np.stack([
+            np.where(loc[p] >= 0, g[np.maximum(loc[p], 0)], -1)
+            for p, g in enumerate(gid)]).astype(np.int32), device=idx.device)
+
+    mem, parted = {}, {}
+    for kind in ("hash", "contiguous"):
+        path = f"partitioned-{kind}"
+        with Recorder(omp, "omp_select_batched") as solves, \
+                Recorder(partition, "_certified_merge") as merges:
+            res = measure(path, lambda: partition.gradmatch_partitioned(
+                pcg, PART_K, partitions=PART_P, kind=kind))
+        needs(path, ("corr_batched", "corr_argmax_batched", "corr",
+                     "corr_argmax"))
+        check_sel(res, path, PART_K)
+        check(res.stats.quotas == (PART_K // PART_P,) * PART_P,
+              f"{path}: quotas {res.stats.quotas}")
+        want, solve_want = batched_of(solves[0])
+        targets = solves[0][0][1]
+        plan = partition.make_plan(n, PART_P, kind=kind)
+        with Recorder(dist_lib, "pmap_partition_omp") as groups:
+            grouped, grouped_s = timed(
+                lambda: partition.gradmatch_partitioned(
+                    pcg, PART_K, partitions=PART_P, kind=kind,
+                    use_pmap=True))
+        g_args, g_kw, g_out = groups[0]
+
+        def solve_grouped(t):
+            out = dist_lib.pmap_partition_omp(*g_args[:3], t, **g_kw)
+            return (global_ids(plan, out[0]), *out[1:])
+
+        parted[kind] = by_partition(
+            f"{path}: use_pmap=True vs the default", targets,
+            (global_ids(plan, g_out[0]), *g_out[1:]), want, solve_grouped,
+            solve_want)
+        if not parted[kind]:
+            same_sel(grouped, res, f"{path}: use_pmap=True vs the default")
+        mem[kind] = (res, want, solve_want, targets, merges[0])
+        emit("partition", path=path, shape=list(pcg.shape), k=PART_K,
+             partitions=PART_P, selection_seconds=seconds[path],
+             use_pmap_seconds=grouped_s, union_size=res.stats.union_size,
+             merged=res.stats.merged, err=float(res.err),
+             use_pmap_parted=parted[kind], launches=counts[path],
+             routes=routes[path])
+    # (P = 1 at a partition's budget: its merge is PART_K more rounds)
+    k1 = PART_K // PART_P
+    single, single_s = timed(lambda: gradmatch(pcg, k1))
+    with Recorder(omp, "omp_select_batched") as solves:
+        one, one_s = timed(lambda: partition.gradmatch_partitioned(
+            pcg, k1, partitions=1))
+    want, solve_one = batched_of(solves[0])
+    s_target = pcg.sum(dim=0)
+    one_parted = agree(
+        torch, pcg, s_target, tuple(x[0] for x in want),
+        omp.omp_select(pcg, s_target, k1),
+        lambda t: rows_of(t, solve_one, 0),
+        lambda t: omp.omp_select(pcg, s_target, t),
+        "P = 1 vs the single solver")
+    if one_parted["parted_at"] is None:
+        check(picks_of(one) == picks_of(single),
+              "P = 1 does not give the single solver's set")
+    emit("partition", what="P = 1 vs the single solver", k=k1,
+         single_seconds=single_s, partitioned_seconds=one_s,
+         err_single=float(single.err), err_partitioned=float(one.err),
+         parted=one_parted)
+
+    # 3. the streaming partitions: contiguous ranges through the streaming
+    # engine, chunks of STREAM_CHUNK, against the in-memory contiguous
+    # path: each partition's problem by agree() (the stream sums its
+    # targets chunk by chunk), then the merged selections
+    path = "partitioned-stream"
+    with Recorder(streaming, "omp_select_streaming") as engines, \
+            Recorder(partition, "_certified_merge") as merges:
+        st = measure(path, lambda: partition.gradmatch_partitioned_stream(
+            pool=pcg, k=PART_K, partitions=PART_P,
+            chunk_size=STREAM_CHUNK))
+    needs(path, ("corr", "bound_max", "corr_argmax"))
+    check_sel(st, path, PART_K)
+    ss = st.stats.stream
+    check(ss.rounds == sum(st.stats.quotas) == PART_K,
+          f"{path}: {ss.rounds} engine rounds")
+    res, want, solve_want, targets, mem_merge = mem["contiguous"]
+    lows = [n * p // PART_P for p in range(PART_P)]
+
+    def stream_solves(t):
+        outs = [streaming.omp_select_streaming(*a[:2], t, **kw)
+                for a, kw, _ in engines]
+        return (torch.stack([torch.where(o.mask, o.indices + lo, -1)
+                             for o, lo in zip(outs, lows)]),
+                *(torch.stack([getattr(o, f) for o in outs])
+                  for f in ("weights", "mask", "err")))
+
+    got = (torch.stack([torch.where(o.mask, o.indices + lo, -1)
+                        for (_, _, o), lo in zip(engines, lows)]),
+           *(torch.stack([getattr(o, f) for _, _, o in engines])
+             for f in ("weights", "mask", "err")))
+    parted["stream"] = by_partition(f"{path} vs in-memory contiguous",
+                                    targets, got, want, stream_solves,
+                                    solve_want)
+    if not parted["stream"]:
+        # the same union, merged against a global target summed another
+        # way: agree() on the merge problem
+        def merge_at(args):
+            return lambda t: partition._certified_merge(
+                *args[:3], t, *args[4:])[:4]
+
+        (s_args, _, s_out), (m_args, _, m_out) = merges[0], mem_merge
+        rec = agree(torch, pcg, m_args[2], s_out[:4], m_out[:4],
+                    merge_at(s_args), merge_at(m_args),
+                    f"{path}: the merge vs in-memory contiguous's")
+        if rec["parted_at"] is not None:
+            parted["stream"].append({"merge": True, **rec})
+        else:
+            same_sel(st, res, f"{path} vs in-memory contiguous")
+    emit("partition", path=path, shape=list(pcg.shape), k=PART_K,
+         partitions=PART_P, chunk=STREAM_CHUNK,
+         selection_seconds=seconds[path], passes=ss.passes,
+         rounds=ss.rounds, certified_rounds=ss.certified_rounds,
+         refills=ss.refills, repairs=ss.repairs,
+         fetched_rows=ss.fetched_rows, cache_hit_rate=ss.cache_hit_rate,
+         host_syncs=ss.host_syncs, parted_from_in_memory=parted["stream"],
+         bound_max_arenas=sorted({key[1:3] for key in shapes[path]
+                                  if key[0] == "bound_max"}),
+         launches=counts[path], routes=routes[path])
+
+    # 4. GRAD-MATCHPB over ranks: no group (a world of one), then a
+    # one-rank NCCL group, both against omp_select on the (703, 10) proxies
+    path = "sharded-pb"
+    kb = K // BATCH
+    ex = bias[:PB_ROWS * BATCH]
+    pb = per_batch(bias, BATCH)
+    tgt = pb.sum(dim=0)
+    want = omp.omp_select(pb, tgt, kb)
+
+    def sharded(group):
+        return (dist_lib.sharded_gradmatch_pb(ex, BATCH, kb, group=group),
+                dist_lib.sharded_omp_select(pb, tgt, kb, group=group))
+
+    def both_groups():
+        alone = sharded(None)
+        # one rank: NCCL's bootstrap needs no interface but the loopback
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=1, rank=0)
+        try:
+            ranks = sharded(dist.group.WORLD)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+        return alone, ranks
+
+    alone, ranks = measure(path, both_groups)
+    needs(path, ("corr",))
+    ww = want[1] * want[2]
+    for what, res in (("gradmatch_pb, no group", alone[0]),
+                      ("omp_select, no group", alone[1]),
+                      ("gradmatch_pb, NCCL", ranks[0]),
+                      ("omp_select, NCCL", ranks[1])):
+        check(torch.equal(res.indices, want[0])
+              and torch.equal(res.mask, want[2]),
+              f"{path} {what}: picks differ from omp_select's")
+        check(torch.allclose(res.weights * ww.sum(), ww, rtol=1e-3,
+                             atol=1e-5), f"{path} {what}: weights differ")
+    emit("partition", path=path, shape=list(pb.shape), k=kb,
+         selection_seconds=seconds[path], err_omp=float(want[3]),
+         err_sharded=[float(r.err) for r in (*alone, *ranks)],
+         launches=counts[path])
+
+    # 5. CRAIG's greedy with the gain scan sharded over the local devices
+    # (one card) against lazy CRAIG on the fly, on the bias proxies
+    path = "fl-pmap"
+    lm = greedy.default_l_max(bias)
+    pm = measure(path, lambda: dist_lib.fl_greedy_pmap(bias, FL_PMAP_K,
+                                                       l_max=lm))
+    lazy, lazy_s = timed(lambda: greedy.fl_greedy(
+        bias, FL_PMAP_K, method="lazy", on_the_fly=True, l_max=lm))
+    check(torch.equal(pm.indices, lazy.indices)
+          and torch.equal(pm.mask, lazy.mask),
+          f"{path}: the picks differ from lazy CRAIG's")
+    emit("partition", path=path, shape=list(bias.shape), k=FL_PMAP_K,
+         selection_seconds=seconds[path], lazy_seconds=lazy_s,
+         max_gain_diff=float((pm.gains - lazy.gains).abs().max()),
+         launches=counts[path])
+    emit("partition", what="phase", seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return {"counts": counts, "shapes": shapes, "routes": routes,
+            "selection_seconds": seconds}
+
+
 def lm_step_parts(torch, cfg, model, stream, args, proxy_fn) -> dict:
     """Median seconds of the LM loop's parts (drawing a micro-batch, the
     weighted loss's forward, its backward, the SGD update, one candidate's
@@ -2541,6 +3076,88 @@ def phase_lm(torch, np, card: dict, records: dict) -> dict:
             "selection_seconds": {"lm": rep["selection_s"]}}
 
 
+def kernels_line(torch, records: dict, runs) -> list:
+    """The ``kernels`` line from the paths' runs (each a dict of counts,
+    shapes, routes and selection seconds): every kernel a path launched,
+    at a shape the kernels phases measured; and a ``share`` line a path,
+    the share of its selection seconds spent in the kernels."""
+    counts = {p: c for r in runs for p, c in r["counts"].items()}
+    shapes = {p: c for r in runs for p, c in r["shapes"].items()}
+    routes = {p: c for r in runs for p, c in r.get("routes", {}).items()}
+    selection_seconds = {p: c for r in runs
+                         for p, c in r["selection_seconds"].items()}
+    kernels = []
+    kernel_s = {path: 0.0 for path in counts}
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        # The top-level numbers are those at MAIN_PATH's shape; "paths"
+        # holds each path that launched the kernel, with its launches and
+        # the numbers at the shape that path gives it.
+        paths = {}
+        for path, c in counts.items():
+            if c[name] == 0:
+                continue
+            rec = records[name].get(path)
+            check(rec is not None, f"{name} launched on {path} at a shape "
+                  "the kernels phase did not measure")
+            # a path that runs a kernel at several shapes (the streaming
+            # partitions' arenas) has a record for each: the first gives
+            # the top-level numbers, "at_shapes" each with its launches
+            recs = rec if isinstance(rec, list) else [rec]
+            rec = recs[0]
+            paths[path] = {"launches": c[name], **rec}
+            if len(recs) > 1:
+                at = {tuple(key[1:3]): n for key, n in shapes[path].items()
+                      if key[0] == name}
+                paths[path]["at_shapes"] = [
+                    {"launches": at.get(tuple(r["shape"]), 0), **r}
+                    for r in recs]
+                check(sum(e["launches"] for e in paths[path]["at_shapes"])
+                      == c[name], f"{name} on {path}: launches at measured "
+                      f"shapes do not add up to {c[name]}")
+            by_route = {k.split("/")[1]: v
+                        for k, v in routes.get(path, {}).items()
+                        if k.startswith(name + "/")}
+            if by_route:
+                paths[path]["launches_by_route"] = by_route
+            for kname, n, d, _, *batch in shapes[path]:
+                # a batched kernel's key adds (B, per-problem matrix): the
+                # paths give it a shared pool, measured at its B
+                ran = [n, d, *batch[:1]]
+                per_problem = bool(batch[1:] and batch[1])
+                check(kname != name or name == "corr"
+                      or (any(r["shape"] == ran for r in recs)
+                          and not per_problem),
+                      f"{name} ran at {ran} (per-problem: {per_problem}) "
+                      f"on {path}, measured at "
+                      f"{[r['shape'] for r in recs]}")
+            if name == "corr":
+                continue
+            if len(recs) > 1:
+                kernel_s[path] += sum(e["launches"] * e["ms"] / 1e3
+                                      for e in paths[path]["at_shapes"])
+            else:
+                kernel_s[path] += c[name] * rec["ms"] / 1e3
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": sum(p["launches"]
+                                        for p in paths.values()),
+                        **records[name][MAIN_PATH[name]], "paths": paths})
+    # Share of each path's selection seconds spent in the kernels: launches
+    # times each kernel's device time at that path's shape, and for corr,
+    # which a path calls at many shapes, the launches at each shape times
+    # the time measured at that shape.
+    for path in counts:
+        corr_s, by_shape = corr_seconds(torch, shapes[path])
+        check(sum(e["launches"] for e in by_shape) == counts[path]["corr"],
+              f"{path}: corr launches by shape do not add up")
+        kernel_s[path] += corr_s
+        emit("share", path=path, kernel_seconds=kernel_s[path],
+             corr_seconds=corr_s, corr_by_shape=by_shape,
+             selection_seconds=selection_seconds[path],
+             kernel_share=kernel_s[path] / selection_seconds[path])
+    return kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2569,61 +3186,10 @@ def main() -> int:
     ba = phase_batched(torch, np, tr["model"], tr["train"])
     cr = phase_craig(torch, np, tr["train"], tr["val"])
     st = phase_stream(torch, np, tr["train"], tr["val"])
+    pa = phase_partition(torch, np, tr["train"], tr["val"])
     lm_ = phase_lm(torch, np, card, records)
-    runs = (tr, ba, cr, st, lm_)
-    counts = {p: c for r in runs for p, c in r["counts"].items()}
-    shapes = {p: c for r in runs for p, c in r["shapes"].items()}
-    routes = {p: c for r in runs for p, c in r.get("routes", {}).items()}
-    selection_seconds = {p: c for r in runs
-                         for p, c in r["selection_seconds"].items()}
-    kernels = []
-    kernel_s = {path: 0.0 for path in counts}
-    for name, (source, replaces) in KERNEL_SOURCES.items():
-        # The top-level numbers are those at MAIN_PATH's shape; "paths"
-        # holds each path that launched the kernel, with its launches and
-        # the numbers at the shape that path gives it.
-        paths = {}
-        for path, c in counts.items():
-            if c[name] == 0:
-                continue
-            rec = records[name].get(path)
-            check(rec is not None, f"{name} launched on {path} at a shape "
-                  "the kernels phase did not measure")
-            paths[path] = {"launches": c[name], **rec}
-            by_route = {k.split("/")[1]: v
-                        for k, v in routes.get(path, {}).items()
-                        if k.startswith(name + "/")}
-            if by_route:
-                paths[path]["launches_by_route"] = by_route
-            for kname, n, d, _, *batch in shapes[path]:
-                # a batched kernel's key adds (B, per-problem matrix): the
-                # paths give it a shared pool, measured at its B
-                ran = [n, d, *batch[:1]]
-                per_problem = bool(batch[1:] and batch[1])
-                check(kname != name or name == "corr"
-                      or (rec["shape"] == ran and not per_problem),
-                      f"{name} ran at {ran} (per-problem: {per_problem}) "
-                      f"on {path}, measured at {rec['shape']}")
-            if name != "corr":
-                kernel_s[path] += c[name] * rec["ms"] / 1e3
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": sum(p["launches"]
-                                        for p in paths.values()),
-                        **records[name][MAIN_PATH[name]], "paths": paths})
-    # Share of each path's selection seconds spent in the kernels: launches
-    # times each kernel's device time at that path's shape, and for corr,
-    # which a path calls at many shapes, the launches at each shape times
-    # the time measured at that shape.
-    for path in counts:
-        corr_s, by_shape = corr_seconds(torch, shapes[path])
-        check(sum(e["launches"] for e in by_shape) == counts[path]["corr"],
-              f"{path}: corr launches by shape do not add up")
-        kernel_s[path] += corr_s
-        emit("share", path=path, kernel_seconds=kernel_s[path],
-             corr_seconds=corr_s, corr_by_shape=by_shape,
-             selection_seconds=selection_seconds[path],
-             kernel_share=kernel_s[path] / selection_seconds[path])
+    runs = (tr, ba, cr, st, pa, lm_)
+    kernels = kernels_line(torch, records, runs)
     emit("done", seconds=time.perf_counter() - t_start)
     print(card["smi"])
     print(json.dumps({"kernels": kernels}))

@@ -28,7 +28,8 @@ class SelectionResult(NamedTuple):
     mask: torch.Tensor     # (k,) bool
     err: torch.Tensor      # () f32  final E_lambda value (diagnostic)
     # Solver accounting: the streaming entry points attach their
-    # SelectStats; None elsewhere.
+    # SelectStats, the partitioned ones their PartitionStats; None
+    # elsewhere.
     stats: Optional[Any] = None
 
     @property
@@ -129,4 +130,4 @@ def expand_batch_selection(sel: SelectionResult, batch_size: int,
     ex_w = torch.where(ex_mask, ex_w, 0.0)
     s = torch.clamp_min(ex_w.sum(), 1e-12)
     return SelectionResult(ex_idx.to(torch.int32), ex_w / s, ex_mask,
-                           sel.err)
+                           sel.err, sel.stats)

@@ -742,6 +742,7 @@ def omp_select_batched(
     valid: Optional[torch.Tensor] = None,   # (B, n) or (n,) availability
     method: str = "incremental",
     block: int = 128,
+    single_regime: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Solve B OMP problems over one shared pool.
 
@@ -749,7 +750,10 @@ def omp_select_batched(
     err (B,) f32)`` on the device of ``grads``: row b is what
     ``omp_select(grads, targets[b], ...)`` picks, index for index away
     from the f32 noise floor (the same math, batched reductions).
-    ``method="dense"`` runs B dense solves, the oracle.
+    ``method="dense"`` runs B dense solves, the oracle.  ``single_regime``
+    takes ``omp_select``'s regime rule (``hi <= d``) in place of the
+    reference's ``hi * B <= d``, so each problem runs its single solve's
+    rounds (the partition and per-class solves).
     """
     if method not in ("incremental", "dense"):
         raise ValueError(f"unknown OMP method {method!r}")
@@ -769,7 +773,7 @@ def omp_select_batched(
         return tuple(torch.stack([o[i] for o in outs]) for i in range(4))
     return _omp_select_batched_incremental(grads, targets, k, lam, eps,
                                            nnls_iters, positive, valid,
-                                           block)
+                                           block, single_regime)
 
 
 def split_budget(k: int, sizes: Sequence[int]) -> np.ndarray:

@@ -7,7 +7,8 @@ greedy tiers (``craig`` = dense oracle, ``craig-lazy`` = certified lazy
 greedy with identical selections, ``craig-lazy-otf`` = the same with the
 similarity rebuilt on the fly, ``craig-stochastic`` = seeded stochastic
 greedy), ``craig-pb``, ``glister``, ``gradmatch-stream`` (the certified
-streaming OMP of ``core/streaming.py``), ``random`` and ``full``; the
+streaming OMP of ``core/streaming.py``), ``gradmatch-partitioned``
+(partition-and-merge, ``core/partition.py``), ``random`` and ``full``; the
 reference's other strategies raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
 
@@ -25,13 +26,15 @@ import torch
 from repro_torch.core import craig as craig_lib
 from repro_torch.core import glister as glister_lib
 from repro_torch.core import gradmatch as gm_lib
+from repro_torch.core import partition as part_lib
 from repro_torch.core import random_sel
 from repro_torch.core import streaming as stream_lib
 from repro_torch.core.gradmatch import SelectionResult
 
-STRATEGIES = ("gradmatch", "gradmatch-pb", "gradmatch-stream", "craig",
-              "craig-lazy", "craig-lazy-otf", "craig-stochastic", "craig-pb",
-              "glister", "random", "full")
+STRATEGIES = ("gradmatch", "gradmatch-pb", "gradmatch-stream",
+              "gradmatch-partitioned", "craig", "craig-lazy",
+              "craig-lazy-otf", "craig-stochastic", "craig-pb", "glister",
+              "random", "full")
 
 # CRAIG tiers of the shared greedy engine (core/greedy.py): "craig-lazy"
 # selects index-identically to "craig"; "craig-lazy-otf" is the same lazy
@@ -42,10 +45,10 @@ _CRAIG_METHODS = {"craig": "dense", "craig-lazy": "lazy",
                   "craig-stochastic": "stochastic"}
 _CRAIG_ON_THE_FLY = frozenset({"craig-lazy-otf"})
 
-# Strategies of the JAX package that later slices port (ROADMAP.md queue 1).
+# Strategies of the JAX package that later slices port: the ROADMAP.md
+# queue 1 item, by its title.
 NOT_PORTED = {
-    "gradmatch-partitioned": "queue 1 item 9 (core/partition.py)",
-    "gradmatch-continual": "queue 1 item 8 (continual selection)",
+    "gradmatch-continual": 'queue 1, "Continual selection"',
 }
 
 
@@ -75,6 +78,7 @@ def select(
     chunk_size: int = 2048,            # gradmatch-stream: pool chunk rows
     stream_buffer: int = 256,          # gradmatch-stream: top-M buffer slots
     stream_cache_bytes: int = stream_lib.DEFAULT_CACHE_BYTES,
+    partitions: Optional[int] = None,  # gradmatch-partitioned: P (None: auto)
 ) -> SelectionResult:
     """Resolve one selection round.  ``val_target`` switches isValid=True.
 
@@ -90,8 +94,23 @@ def select(
     memory, with the engine's ``SelectStats`` on the result.
     ``stream_cache_bytes`` must be positive here (a cacheless solve is
     only available on ``streaming.omp_select_streaming``).
+
+    ``"gradmatch-partitioned"`` runs partition-and-merge selection: one
+    partition a class under ``"gradmatch"``'s per-class criteria, else
+    ``partitions`` hashed partitions (``None``: automatic).  A knob passed
+    to a strategy that cannot honour it is rejected, not ignored.
     """
     check_strategy(strategy)
+    if partitions is not None:
+        if strategy != "gradmatch-partitioned":
+            raise ValueError(
+                f"partitions={partitions} only applies to "
+                f"'gradmatch-partitioned', not {strategy!r} — it would be "
+                "silently ignored (drop it, or switch strategy)")
+        if partitions < 1:
+            raise ValueError(
+                f"partitions must be >= 1, got {partitions}; omit it (or "
+                "pass None) for automatic partition sizing")
     n = proxies.shape[0]
     dev = proxies.device
     if strategy == "full":
@@ -127,6 +146,17 @@ def select(
             proxies, k, target=val_target, lam=lam, eps=eps,
             chunk_size=chunk_size, buffer_size=stream_buffer,
             cache_bytes=stream_cache_bytes)
+    if strategy == "gradmatch-partitioned":
+        # Per-class partitions when "gradmatch" would run per class, hashed
+        # ones otherwise; out-of-core pools go through
+        # ``partition.gradmatch_partitioned_stream`` directly.
+        use_labels = (per_class and labels is not None and num_classes > 1
+                      and val_target is None)
+        return part_lib.gradmatch_partitioned(
+            proxies, k, partitions=0 if partitions is None else partitions,
+            labels=labels if use_labels else None,
+            num_classes=num_classes if use_labels else 0,
+            target=val_target, lam=lam, eps=eps, method=omp_method)
     if strategy == "gradmatch-pb":
         return gm_lib.gradmatch_pb(
             proxies, batch_size, max(k // batch_size, 1), lam=lam, eps=eps,

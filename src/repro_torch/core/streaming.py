@@ -31,8 +31,9 @@ Port notes (what differs from the reference, and why):
   in-range sentinel would make duplicate writes race), so no write needs
   a host sync to filter its positions.
 * The solve's state lives in tensors updated in place.
-* Checkpoint/resume waits for ROADMAP.md queue 1 item 10 and the pmap chunk
-  scorer for item 9; the ``score_chunk_fn`` hook is kept.
+* Checkpoint/resume waits for ROADMAP.md queue 1, "Checkpoint and
+  resilience".  The ``score_chunk_fn`` hook takes the device-parallel
+  scorer ``distributed.pmap_chunk_topm``.
 """
 
 from __future__ import annotations
@@ -759,9 +760,9 @@ class SelectStats:
     retries: int = 0            # transient faults retried (chunks + rows)
     quarantined: int = 0        # rows masked out after persistent
                                 # corruption (never silently selected)
-    checkpoints: int = 0        # mid-solve snapshots written (item 10)
-    resumes: int = 0            # solves resumed from a checkpoint (item 10)
-    admits: int = 0             # continual selection (item 8)
+    checkpoints: int = 0        # mid-solve snapshots written (not ported)
+    resumes: int = 0            # solves resumed from a checkpoint (ditto)
+    admits: int = 0             # continual selection (not ported)
     evicts: int = 0
     downdates: int = 0
     resolves: int = 0
@@ -828,7 +829,7 @@ def omp_select_streaming(
     row_fetch: Optional[Callable] = None,    # ids -> exact f32 rows
     repair_slots: int = 512,             # annex width for exact-row repairs
     retry: Optional[RetryPolicy] = None,     # transient-fault recovery
-    checkpoint_dir: Optional[str] = None,    # not ported (item 10)
+    checkpoint_dir: Optional[str] = None,    # not ported: raises
     device: str | torch.device | None = None,
 ) -> StreamingOMPResult:
     """OMP over a chunked pool, with ``omp_select``'s selection, on
@@ -844,12 +845,12 @@ def omp_select_streaming(
     chunks and fetched rows are verified against the cache's exact-norm
     sidecars, and rows that keep disagreeing are quarantined, never
     selected.  ``checkpoint_dir`` raises: checkpoint/resume is ROADMAP.md
-    queue 1 item 10.
+    queue 1, "Checkpoint and resilience".
     """
     if checkpoint_dir is not None:
         raise NotImplementedError(
             "streaming checkpoint/resume is not ported to repro_torch yet: "
-            "ROADMAP.md queue 1 item 10")
+            'ROADMAP.md queue 1, "Checkpoint and resilience"')
     dev = resolve_device(device)
     target = torch.as_tensor(target, dtype=torch.float32).to(dev)
     d = target.shape[0]

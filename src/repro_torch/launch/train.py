@@ -16,8 +16,8 @@ the port runs the dense attention archs).  The loop is the reference's:
 
 It runs on the card unless ``--device cpu`` asks for the CPU; a missing card
 raises.  One device only: ``--mesh-data``/``--mesh-model`` above 1 and
-``--fsdp`` raise (ROADMAP queue 1 item 9), as does ``--checkpoint-dir``
-(item 10).  Example::
+``--fsdp`` raise (ROADMAP queue 1, "The rest of the LM side", (g)), as
+does ``--checkpoint-dir`` (queue 1, "Checkpoint and resilience").  Example::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke \\
       --device cpu --steps 100 --select-every 20 --budget 0.25
@@ -86,11 +86,12 @@ def main(argv=None, *, stream=None, model: lm_lib.LM | None = None) -> dict:
     if args.mesh_data > 1 or args.mesh_model > 1 or args.fsdp:
         raise NotImplementedError(
             "the port's driver runs on one device: --mesh-data/--mesh-model "
-            "> 1 and --fsdp are not ported yet (ROADMAP queue 1 item 9)")
+            "> 1 and --fsdp are not ported yet (ROADMAP queue 1, \"The "
+            "rest of the LM side\", (g))")
     if args.checkpoint_dir:
         raise NotImplementedError(
             "--checkpoint-dir: checkpointing is not ported yet (ROADMAP "
-            "queue 1 item 10)")
+            "queue 1, \"Checkpoint and resilience\")")
     device = resolve_device(args.device)
     if model is not None:
         cfg = model.cfg

@@ -5,7 +5,8 @@ The port covers the attention layer kinds (``attn``, ``local``,
 ``global``) in train mode: the dense archs (gemma-2b, gemma2-9b,
 starcoder2-3b, codeqwen1.5-7b).  MoE, ``mamba2``, ``mlstm``, ``slstm``,
 ``xattn``, ``shared_attn``, encoder-only heads and the prefill/decode modes
-raise ``NotImplementedError`` (ROADMAP queue 1 item 12).
+raise ``NotImplementedError`` (ROADMAP queue 1, "The rest of the LM
+side").
 
 Parameters live in a ``ParamTree`` (``LM``) whose names follow the
 reference's pytree paths, with ``blocks`` a list of super-blocks where the
@@ -34,7 +35,7 @@ from repro_torch.models import attention, common, ffn
 from repro_torch.models.common import ParamTree, dtype_of
 
 _ATTN_KINDS = (ATTN, LOCAL, GLOBAL)
-_LATER = "ROADMAP queue 1 item 12"
+_LATER = 'ROADMAP queue 1, "The rest of the LM side"'
 
 
 def _check_supported(cfg: ModelConfig) -> None:

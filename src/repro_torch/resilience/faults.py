@@ -8,7 +8,8 @@
                        cache's exact-norm sidecars; raised by the engine.
 
 The reference's seeded fault injectors, its permanent ``StreamDied`` and
-its circuit breaker are not ported yet (ROADMAP.md queue 1 item 10).
+its circuit breaker are not ported yet (ROADMAP.md queue 1, "Checkpoint
+and resilience").
 """
 
 from __future__ import annotations

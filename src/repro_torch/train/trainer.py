@@ -54,7 +54,7 @@ class TrainerConfig:
     stream_buffer: int = 256           # gradmatch-stream: top-M buffer slots
     stream_cache_bytes: int = 256 << 20  # gradmatch-stream: chunk cache
     seed: int = 0
-    checkpoint_dir: Optional[str] = None   # not ported (ROADMAP item 10)
+    checkpoint_dir: Optional[str] = None   # not ported: see __init__
     eval_every: int = 5
 
 
@@ -84,7 +84,7 @@ class AdaptiveTrainer:
         if tcfg.checkpoint_dir is not None:
             raise NotImplementedError(
                 "checkpointing is not ported to repro_torch yet: ROADMAP.md "
-                "queue 1 item 10")
+                "queue 1, \"Checkpoint and resilience\"")
         sel_lib.check_strategy(tcfg.strategy)
         self.device = resolve_device(device)
         self.mcfg = model_cfg

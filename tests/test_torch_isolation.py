@@ -112,6 +112,30 @@ def test_streaming_entry_points_refuse_the_cpu_without_being_asked():
     assert out.indices.device.type == "cpu"
 
 
+def test_partition_entry_points_refuse_the_cpu_without_being_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    import numpy as np
+
+    from repro_torch.core import distributed, partition
+
+    g = np.ones((16, 3), np.float32)
+    parts, valids = g.reshape(2, 8, 3), np.ones((2, 8), bool)
+    for call in (lambda: partition.gradmatch_partitioned(g, 2),
+                 lambda: partition.gradmatch_partitioned_stream(pool=g, k=2),
+                 lambda: distributed.sharded_omp_select(g, g.sum(0), 2),
+                 lambda: distributed.sharded_gradmatch_pb(g, 4, 2),
+                 lambda: distributed.fl_greedy_pmap(g, 2),
+                 lambda: distributed.shard_fl_pool(g),
+                 lambda: distributed.pmap_partition_omp(parts, g[:2], valids,
+                                                        2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # asked for explicitly, the CPU is fine
+    out = partition.gradmatch_partitioned(g, 2, device="cpu")
+    assert out.indices.device.type == "cpu"
+
+
 def test_lm_driver_refuses_the_cpu_without_being_asked():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")

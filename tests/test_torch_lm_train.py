@@ -120,11 +120,11 @@ def test_driver_runs_each_strategy_on_its_own_stream(strategy):
         assert sum(sel["weights"]) == pytest.approx(1.0, rel=1e-5)
 
 
-@pytest.mark.parametrize("flags,item", [(["--mesh-data", "2"], "item 9"),
-                                        (["--mesh-model", "2"], "item 9"),
-                                        (["--fsdp"], "item 9"),
-                                        (["--checkpoint-dir", "ck"],
-                                         "item 10")])
+@pytest.mark.parametrize("flags,item", [
+    (["--mesh-data", "2"], "The rest of the LM side"),
+    (["--mesh-model", "2"], "The rest of the LM side"),
+    (["--fsdp"], "The rest of the LM side"),
+    (["--checkpoint-dir", "ck"], "Checkpoint and resilience")])
 def test_driver_refuses_what_is_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train.main(["--smoke", "--device", "cpu", *flags])
