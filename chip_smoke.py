@@ -34,7 +34,8 @@ Phases, one JSON line each:
   5. solve    the per-class solve and the GRAD-MATCHPB solve, each with the
               kernels and with the plain versions, both on the card, on the
               same proxies: ``err`` must agree; then the batched per-class
-              solve against the former loop of ten single solves, both timed:
+              solve against the former loop of ten single solves at a
+              budget of 1 280, both timed:
               each class's picks equal, weights and ``err`` to rtol 1e-4 /
               atol 1e-5, or parted only at a tie the two engines' f32
               state difference can flip (``agree``);
@@ -63,14 +64,15 @@ Phases, one JSON line each:
   8. stream   streaming GRAD-MATCH (``gradmatch-stream``) at the same data
               and widths: trained end to end through ``AdaptiveTrainer``
               (bias proxies extracted a chunk of 1 024 at a time, buffer
-              256, 256 MiB cache), its first selection held index-exact
-              against in-memory pooled OMP on the proxies and target the
-              streaming pass saw; then one pooled per-gradient selection
-              (45 000, 65) with the kernels, with the plain versions, and
+              256, 256 MiB cache, one selection: R = 2), the selection's
+              first 1 024 picks held index-exact against in-memory pooled
+              OMP on the proxies and target the streaming pass saw; then one
+              pooled per-gradient selection (45 000, 65) at k 1 024 with
+              the kernels, with the plain versions, and
               with the plain versions scoring at the pool's shape, each
               beside in-memory pooled GRAD-MATCH in the same arithmetic
               (index-exact with the kernels and at the pool's shape); the
-              trainer's first selection again, 1 024 rounds, with half the
+              trainer's first selection again, 256 rounds, with half the
               arena's bytes (LRU eviction, rounds certified by the cached
               chunks' bound and the sketch of the others, loader passes);
               and fetched proxy rows bit-equal to the scanned ones;
@@ -99,14 +101,37 @@ Phases, one JSON line each:
               inside it, the last selection again with the plain versions
               (the same picks, or a parting ``agree`` certifies, in a
               class's solve or the merge); ``partitioned-hash`` and
-              ``-contiguous`` (P 4, k 900, per-gradient proxies) against
+              ``-contiguous`` (P 4, k 512, per-gradient proxies) against
               ``use_pmap=True`` partition by partition, P = 1 against the
-              single solver (k 225); ``partitioned-stream`` (chunks of 1 024)
+              single solver (k 128); ``partitioned-stream`` (chunks of 1 024)
               against in-memory contiguous partitioning, partition by
               partition, then the merge; ``sharded-pb`` (the rank-parallel
               GRAD-MATCHPB and OMP on (703, 10), with no group and with a
               one-rank NCCL group) against ``omp_select``; ``fl-pmap`` (the
               sharded gain scan, k 64) against lazy CRAIG on the fly;
+ 11. resilience (after ``partition``) checkpoints, kill and resume, and
+              continual selection, each path's launch counts read on its
+              own, snapshots in a temporary directory (its free space
+              checked first) removed at the end: the ``stream`` phase's
+              partial-cache selection with a snapshot every 8 rounds (equal
+              to the run without), killed by a dying stream after at least
+              two snapshots and resumed (``corr``, ``bound_max``,
+              ``lastlayer_grad``); the ``trainer`` phase's run with a
+              snapshot every epoch, its epoch-2 snapshot deleted and run
+              again (equal to the trainer phase's run); the trainer's
+              per-gradient proxies in 110 batches of 128 through a
+              continual buffer of 1 024 rows at k 64, killed after batch 55
+              and restored (``corr``, ``corr_argmax``), against a fresh
+              ``omp_select`` (``agree``), and the downdate of the last pick
+              against a re-solve at k 512 over 2 048 x 64; the LM driver on
+              gemma-2b at full width cut to 2 layers, 40 steps with a
+              snapshot every 20, the last deleted and run again; the
+              stochastic rung (k 225) over the resumed arena and over the
+              (45 000, 65) proxies, kernels against plain versions; the
+              continual and stochastic paths' ``corr`` and ``corr_argmax``
+              against their plain versions on the paths' own data.  Each
+              resumed run is bit-equal to its never-killed run; the
+              snapshots' seconds and sizes are printed;
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -180,16 +205,29 @@ STATE_RTOL = 1e-5
 STREAM_CHUNK = 1024       # the trainer's chunk; select()'s is 2 048
 STREAM_BUF = 256 + 512    # buffer + repair annex rows
 PARTIAL_SLOTS = 32        # the partial cache's chunk slots (44 chunks)
-PARTIAL_K = 1024          # rounds of the partial-cache selection
+PARTIAL_K = 256           # rounds of the partial-cache selection
+STREAM_CHECK_K = 1024     # rounds of the streaming vs in-memory checks
+LOOP_K = 1280             # budget of the batched-engine vs loop check
 CRAIG_PATHS = ("craig-lazy", "craig-lazy-otf", "craig-stochastic",
                "craig-pb", "glister", "craig-resident")
 DENSE_K = 256             # rounds of the dense-oracle check
 PART_P = 4                # partitions of the hash, contiguous, stream paths
-PART_K = 900              # their budget: 225 rounds a partition
+PART_K = 512              # their budget: 128 rounds a partition
 PART_PATHS = ("gradmatch-partitioned", "partitioned-hash",
               "partitioned-contiguous", "partitioned-stream", "sharded-pb",
               "fl-pmap")
 FL_PMAP_K = 64            # rounds of the device-sharded CRAIG greedy
+RES_BATCH = 128           # continual: rows an admission (the reference's
+RES_BATCHES = 110         # benchmark run_continual: 110 batches of 128
+RES_CAP = 1024            # into a 1 024-row buffer at k 64)
+RES_K = 64
+RES_KILL = 55             # the continual run is killed after this batch
+DOWN_POOL = (2048, 64)    # the downdate against a fresh solve: pool, k
+DOWN_K = 512
+DEGRADE_K = 225           # the stochastic rung's budget (cut from K)
+RES_LM_LAYERS = 2         # the LM kill and resume: gemma-2b cut to 2 layers
+RES_LM_STEPS = 40
+RES_LM_EVERY = 20
 
 KERNEL_SOURCES = {
     "corr": ("src/repro_torch/kernels/csrc/corr.cu",
@@ -1422,7 +1460,8 @@ def phase_trainer(torch, np) -> dict:
     check(bool(torch.isfinite(w).all()) and abs(float(w.sum()) - 1) < 1e-4,
           "PB selection weights are not finite or do not sum to 1")
     return {"counts": counts, "shapes": shapes, "routes": routes,
-            "model": model, "train": train, "val": val,
+            "model": model, "train": train, "val": val, "config": tcfg,
+            "report": rep,
             "selection_seconds": {"gradmatch": rep.selection_seconds,
                                   "gradmatch-pb": pb_seconds}}
 
@@ -1541,10 +1580,11 @@ def phase_solve(torch, np, model, train) -> None:
         check(bool(torch.isfinite(a.weights).all()),
               f"{path} weights not finite")
 
-    # The batched engine against the loop of ten single solves, kernels on.
+    # The batched engine against the loop of ten single solves, kernels on,
+    # at a budget of LOOP_K (the loop's ten solves are the slow side).
     y = train.y
     sizes = np.bincount(y.cpu().numpy(), minlength=CLASSES)
-    quotas = omp.split_budget(K, sizes)
+    quotas = omp.split_budget(LOOP_K, sizes)
     valids = y[None, :] == torch.arange(CLASSES, device=y.device)[:, None]
     targets = valids.to(pcg.dtype) @ pcg
     k_cap = int(quotas.max())
@@ -1579,7 +1619,7 @@ def phase_solve(torch, np, model, train) -> None:
                                              valid=valids[c]),
                     f"per-class batched vs loop, class {c}")
         classes.append({"class": c, "quota": int(quotas[c]), **rec})
-    emit("solve", path="gradmatch", what="batched engine vs loop",
+    emit("solve", path="gradmatch", what="batched engine vs loop", k=LOOP_K,
          seconds_batched=times["batched"][1], seconds_loop=times["loop"][1],
          classes=classes,
          parted=sum(r["parted_at"] is not None for r in classes))
@@ -2095,10 +2135,11 @@ def phase_stream(torch, np, train, val) -> dict:
         differ = (a != b).nonzero()
         return int(differ[0, 0]) if len(differ) else None
 
-    # 1. gradmatch-stream trained end to end (bias proxies, chunk 1 024)
+    # 1. gradmatch-stream trained end to end (bias proxies, chunk 1 024),
+    # one selection (R = 2)
     tcfg = TrainerConfig(strategy="gradmatch-stream", budget=BUDGET,
                          epochs=2, batch_size=BATCH,
-                         hp=PaperHParams(select_every=1), eval_every=1)
+                         hp=PaperHParams(select_every=2), eval_every=1)
     trainer = AdaptiveTrainer(mlp(), tcfg, train, val)
     model = trainer.init_model()
     model0 = copy.deepcopy(model)
@@ -2117,9 +2158,12 @@ def phase_stream(torch, np, train, val) -> dict:
     counts = {"gradmatch-stream": ops.launch_counts()}
     shapes = {"gradmatch-stream": ops.launch_shapes()}
     routes = {"gradmatch-stream": ops.launch_routes()}
-    # The first selection against in-memory pooled OMP on the rows and the
+    # The selection against in-memory pooled OMP on the rows and the
     # target the streaming pass saw (chunked extraction, summed chunk by
-    # chunk; a full-matrix sum may differ in its last bits).
+    # chunk; a full-matrix sum may differ in its last bits), cut to its
+    # first STREAM_CHECK_K rounds: OMP's picks are a prefix (a solve of k'
+    # rounds, k' a multiple of the 128-round block, makes the first k'
+    # picks of a longer one).
     proxy0 = make_proxy_fn(model0)
     chunks = proxy_lib.proxy_chunk_stream(
         ChunkedPool(train.x, train.y, STREAM_CHUNK).chunks, proxy0)
@@ -2127,28 +2171,26 @@ def phase_stream(torch, np, train, val) -> dict:
     rows = torch.cat([c for c, _ in chunks()])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    idx, _, mask, err_mem = omp.omp_select(rows, target, K)
+    idx, _, mask, err_mem = omp.omp_select(rows, target, STREAM_CHECK_K)
     torch.cuda.synchronize()
     mem_s = time.perf_counter() - t0
     first = sels[0][0]
-    part = first_part(first.indices, idx)
+    part = first_part(first.indices[:STREAM_CHECK_K], idx)
     emit("stream", path="gradmatch-stream", rows=train.n, budget=BUDGET,
-         epochs=2, select_every=1, selection_rounds=rep.selection_rounds,
+         epochs=2, select_every=2, selection_rounds=rep.selection_rounds,
          selection_seconds=[dt for _, dt in sels],
-         in_memory_pooled_seconds=mem_s, wall_seconds=rep.wall_seconds,
+         in_memory_k=STREAM_CHECK_K, in_memory_pooled_seconds=mem_s,
+         wall_seconds=rep.wall_seconds,
          final_acc=rep.final_acc, subset_size=rep.subset_size,
          select_stats=[stats_of(sel) for sel, _ in sels],
          launches=counts["gradmatch-stream"],
          routes=routes["gradmatch-stream"],
-         launches_per_selection={
-             name: counts["gradmatch-stream"][name] / 2
-             for name in ("corr", "bound_max", "lastlayer_grad")},
          first_differing_round_vs_in_memory=part,
          err_stream=float(first.err), err_in_memory=float(err_mem),
          first_selection_per_class=torch.bincount(
              train.y[first.indices[first.mask].long()], minlength=10
          ).tolist())
-    check(rep.selection_rounds == 2, "expected two selection rounds")
+    check(rep.selection_rounds == 1, "expected one selection round")
     check(rep.subset_size == K, f"gradmatch-stream kept {rep.subset_size}")
     for sel, _ in sels:
         check_sel(sel, "gradmatch-stream")
@@ -2166,12 +2208,13 @@ def phase_stream(torch, np, train, val) -> dict:
     check(routes["gradmatch-stream"][f"bound_max/{route}"]
           == counts["gradmatch-stream"]["bound_max"],
           f"bound_max left the {route} route: {routes['gradmatch-stream']}")
-    check(part is None and torch.equal(first.mask, mask), "streaming and "
-          f"in-memory pooled OMP part at round {part}")
+    check(part is None and torch.equal(first.mask[:STREAM_CHECK_K], mask),
+          f"streaming and in-memory pooled OMP part at round {part}")
 
     # 2. one pooled per-gradient selection with the kernels, with the plain
     # versions, and with the plain versions scoring every row at the pool's
-    # shape, each beside in-memory pooled GRAD-MATCH in the same arithmetic
+    # shape, each beside in-memory pooled GRAD-MATCH in the same arithmetic,
+    # cut to STREAM_CHECK_K rounds
     pcg, _ = make_proxy_fn(model)(train.x, train.y)
     corr_ref = ref.corr_ref
 
@@ -2206,10 +2249,11 @@ def phase_stream(torch, np, train, val) -> dict:
             ref.corr_ref = corr_ref
 
     def stream():
-        return sel_lib.select("gradmatch-stream", None, pcg, K)
+        return sel_lib.select("gradmatch-stream", None, pcg, STREAM_CHECK_K)
 
     def in_memory():
-        return sel_lib.select("gradmatch", None, pcg, K, per_class=False)
+        return sel_lib.select("gradmatch", None, pcg, STREAM_CHECK_K,
+                              per_class=False)
 
     runs = {"kernels": timed(None, stream),
             "plain": timed("ref", stream),
@@ -2217,7 +2261,7 @@ def phase_stream(torch, np, train, val) -> dict:
     mems = {"kernels": timed(None, in_memory),
             "plain": timed("ref", in_memory)}
     for what, run in runs.items():
-        check_sel(run[0], f"stream-pooled {what}")
+        check_sel(run[0], f"stream-pooled {what}", STREAM_CHECK_K)
     counts["stream-pooled"] = runs["kernels"][2]
     shapes["stream-pooled"] = runs["kernels"][3]
     routes["stream-pooled"] = runs["kernels"][4]
@@ -2232,7 +2276,8 @@ def phase_stream(torch, np, train, val) -> dict:
                                 mems["plain"][0].indices)}
     err = {what: float(run[0].err) for what, run in runs.items()}
     err_mem = {what: float(run[0].err) for what, run in mems.items()}
-    emit("stream", path="stream-pooled", shape=list(pcg.shape), k=K,
+    emit("stream", path="stream-pooled", shape=list(pcg.shape),
+         k=STREAM_CHECK_K,
          seconds={what: run[1] for what, run in runs.items()},
          in_memory_seconds={what: run[1] for what, run in mems.items()},
          select_stats={what: stats_of(run[0]) for what, run in runs.items()},
@@ -2327,7 +2372,14 @@ def phase_stream(torch, np, train, val) -> dict:
          **fetch_bits)
     return {"counts": counts, "shapes": shapes, "routes": routes,
             "selection_seconds": {"gradmatch-stream": rep.selection_seconds,
-                                  "stream-pooled": runs["kernels"][1]}}
+                                  "stream-pooled": runs["kernels"][1]},
+            # the partial-cache selection, for the resilience phase
+            "partial": {"chunks": chunks, "chunk": STREAM_CHUNK,
+                        "fetch": fetch0, "target": target,
+                        "cache_bytes": cbytes, "result": partial,
+                        "seconds": part_s, "lam": tcfg.hp.lam,
+                        "eps": tcfg.hp.eps,
+                        "buffer_size": tcfg.stream_buffer}}
 
 
 class Recorder:
@@ -2753,6 +2805,479 @@ def phase_partition(torch, np, train, val) -> dict:
             "selection_seconds": seconds}
 
 
+def disk_bytes(path) -> int:
+    """Bytes of the files under ``path``."""
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+class Timed:
+    """Time each call of ``module.name`` while active: its seconds and
+    ``size(result, args)`` each, in call order."""
+
+    def __init__(self, module, name: str, size):
+        self.module, self.name, self.size, self.calls = module, name, size, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kwargs)
+            self.calls.append({"seconds": time.perf_counter() - t0,
+                               **self.size(out, args)})
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def resilience_lm_config():
+    """gemma-2b at its published widths, depth cut to RES_LM_LAYERS."""
+    from repro_torch.configs import get_config
+    return get_config("gemma-2b").replace(n_layers=RES_LM_LAYERS,
+                                          n_superblocks=RES_LM_LAYERS)
+
+
+def phase_resilience(torch, np, tr: dict, stream_parts: dict) -> dict:
+    """Checkpoint and resilience, and continual selection, at full width:
+    kill and resume of the streaming engine, the trainer, the continual
+    buffer and the LM driver (each resumed run bit-equal to a run never
+    killed), the continual buffer against a fresh solve, the downdate
+    against a re-solve, and the stochastic degradation rung against the
+    plain versions.  Each path's launch counts are read on their own;
+    snapshots go to a temporary directory removed at the end."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.configs.paper import mlp
+    from repro_torch.continual import BufferMaintainer
+    from repro_torch.core import omp, streaming
+    from repro_torch.core.decremental import omp_downdate
+    from repro_torch.kernels import corr as corr_k
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import lm
+    from repro_torch.resilience import (FaultPlan, FaultyChunkIterator,
+                                        StreamDied, degrade)
+    from repro_torch.train.steps import make_proxy_fn
+    from repro_torch.train.trainer import AdaptiveTrainer
+
+    t_phase = time.perf_counter()
+    dev = next(tr["model"].parameters()).device
+    counts = {}
+
+    def measure(path, fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[path] = ops.launch_counts()
+        return out, time.perf_counter() - t0
+
+    def needs(path, names):
+        for name in names:
+            check(counts[path][name] > 0,
+                  f"kernel {name} was not launched on the {path} path")
+
+    def launches(paths, names):
+        return {p: {n: counts[p][n] for n in names} for p in paths}
+
+    def same(a, b, what):
+        for i, name in enumerate(("indices", "weights", "mask", "err")):
+            check(torch.equal(a[i], b[i]), f"{what}: {name} differ")
+
+    def on_disk(out, args):
+        return {"step": int(args[1]), "mb": disk_bytes(out) / 1e6}
+
+    def held_corr(g, r, what):
+        """``corr`` against its plain version on a path's own data."""
+        got, want = corr_k.corr(g, r), plain.corr_ref(g, r)
+        err = float((got - want).abs().max())
+        scale = float(torch.sqrt((g * g).sum(1).max() * (r * r).sum()))
+        check(torch.allclose(got, want, rtol=1e-5,
+                             atol=1e-6 * max(scale, 1.0)),
+              f"corr disagrees on {what} {list(g.shape)}: {err}")
+        return {"shape": list(g.shape), "max_abs_err": err,
+                "ms": device_ms(torch, lambda: corr_k.corr(g, r)),
+                "plain_ms": device_ms(torch, lambda: plain.corr_ref(g, r))}
+
+    def held_argmax(c, w, mask, what):
+        """``corr_argmax`` (narrow: base 0) against its plain version on a
+        path's own data; the index may differ only at an f32 tie."""
+        base = torch.zeros((c.shape[0],), device=c.device)
+        gi, gv = corr_k.corr_argmax(c, w, base, mask)
+        ri, rv = plain.corr_argmax_ref(c, w, base, mask)
+        gi, ri, gv, rv = int(gi), int(ri), float(gv), float(rv)
+        sc = base - c @ w
+        check(gi == ri or (bool(mask[gi]) and abs(float(sc[gi] - sc[ri]))
+                           <= 1e-6 * abs(float(sc[ri]))),
+              f"corr_argmax on {what}: index {gi} vs {ri}")
+        check(abs(gv - rv) <= 1e-5 * abs(rv) + 1e-6,
+              f"corr_argmax on {what}: value {gv} vs {rv}")
+        return {"shape": list(c.shape), "max_abs_err": abs(gv - rv),
+                "same_index": gi == ri,
+                "ms": device_ms(torch, lambda: corr_k.corr_argmax(
+                    c, w, base, mask)),
+                "plain_ms": device_ms(torch, lambda: plain.corr_argmax_ref(
+                    c, w, base, mask))}
+
+    cfg = resilience_lm_config()
+    root = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    try:
+        # Room for the LM driver's snapshots: keep-3 plus one being
+        # written, each the bf16 parameters and their f32 momentum slots.
+        model = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+        lm_bytes = sum(p.numel() * (p.element_size() + 4)
+                       for p in model.parameters())
+        free = shutil.disk_usage(root).free
+        emit("resilience", what="disk", dir=root, free_gb=free / 1e9,
+             lm_snapshot_gb=lm_bytes / 1e9)
+        check(free > 4 * lm_bytes + (1 << 30), f"{root} has {free / 1e9:.1f}"
+              f" GB free; the LM snapshots need {4 * lm_bytes / 1e9:.1f} GB")
+
+        # 1. streaming kill and resume: the stream phase's partial-cache
+        # selection (the initial model's bias proxies, chunks of 1 024, 32
+        # cache slots for 44 chunks, the row fetch, k = PARTIAL_K), whose
+        # loader is re-read every pass, killed by a dying stream halfway
+        # through its passes and resumed; against the stream phase's run,
+        # which wrote no snapshot.
+        part = stream_parts
+        ref = part["result"]
+        stream_kw = dict(lam=part["lam"], eps=part["eps"],
+                         buffer_size=part["buffer_size"],
+                         row_fetch=part["fetch"])
+
+        def stream_run(it, where, cache=None, **extra):
+            kw = dict(stream_kw, cache_bytes=part["cache_bytes"], **extra)
+            return streaming.gradmatch_streaming(
+                it, PARTIAL_K, cache=cache, checkpoint_dir=None if where
+                is None else os.path.join(root, where), **kw)
+
+        n_chunks = -(-tr["train"].n // part["chunk"])
+        die = n_chunks * (1 + ref.stats.passes // 2)
+        dying = FaultyChunkIterator(part["chunks"],
+                                    FaultPlan(die_after_chunks=die))
+        t0 = time.perf_counter()
+        died = False
+        with Timed(streaming, "save_solver_state", on_disk) as saves:
+            try:
+                stream_run(dying, "killed")
+            except StreamDied:
+                died = True
+        killed_s = time.perf_counter() - t0
+        check(died, "stream: the run was not killed")
+        check(len(saves) >= 2, f"stream: {len(saves)} snapshots before the "
+              "kill")
+        kept = sorted(os.listdir(os.path.join(root, "killed")))
+        arena = streaming.ChunkCache(part["cache_bytes"],
+                                     part["target"].shape[0])
+        resumed, resumed_s = measure("stream-resume", lambda: stream_run(
+            part["chunks"], "killed", cache=arena))
+        same(resumed, ref, "stream: the resumed run against the never-"
+             "killed one")
+        check(resumed.stats.resumes == 1,
+              f"stream: {resumed.stats.resumes} resumes")
+        needs("stream-resume", ("corr", "bound_max", "lastlayer_grad"))
+        # A never-killed run with snapshots against one without, on the
+        # same proxies and budget with the trainer's whole cache (256 MiB:
+        # refills and repairs, few passes; the partial cache's loader
+        # passes are the resumed pair's above).
+        whole = {}
+        for where in (None, "whole"):
+            whole[where], _ = measure(
+                "stream-whole", lambda: streaming.gradmatch_streaming(
+                    part["chunks"], PARTIAL_K, cache_bytes=256 << 20,
+                    checkpoint_dir=where and os.path.join(root, where),
+                    **stream_kw))
+        same(whole["whole"], whole[None], "stream: a never-killed run with "
+             "checkpoint_dir against one without")
+        emit("resilience", part="stream", k=PARTIAL_K, checkpoint_every=8,
+             chunks=n_chunks, died_after_chunks=die,
+             snapshots_before_death=len(saves),
+             snapshot_seconds=[s["seconds"] for s in saves],
+             snapshot_mb=[s["mb"] for s in saves], kept_after_death=kept,
+             seconds={"killed": killed_s, "resumed": resumed_s,
+                      "never_killed": part["seconds"]},
+             resumes=resumed.stats.resumes, bit_equal=True,
+             whole_cache={"checkpoints": whole["whole"].stats.checkpoints,
+                          "passes": whole["whole"].stats.passes,
+                          "bit_equal": True},
+             launches={"stream-resume": {
+                 n: counts["stream-resume"][n]
+                 for n in ("corr", "bound_max", "lastlayer_grad")}})
+
+        # 2. trainer kill and resume: the trainer phase's run (per-class
+        # GRAD-MATCH, budget 0.1, R = 1, 2 epochs) with a snapshot every
+        # epoch, then its epoch-2 snapshot deleted and the run again.
+        tcfg = replace(tr["config"], checkpoint_every=1,
+                       checkpoint_dir=os.path.join(root, "trainer"))
+
+        def trainer_run():
+            trainer = AdaptiveTrainer(mlp(), tcfg, tr["train"], tr["val"])
+            model_t = trainer.init_model()
+            return trainer.run(model_t), model_t
+
+        (rep1, model1), run1_s = measure("trainer-checkpointed", trainer_run)
+        shutil.rmtree(os.path.join(root, "trainer", "step_0000000002"))
+        (rep2, model2), run2_s = measure("trainer-resume", trainer_run)
+        p0 = dict(tr["model"].named_parameters())
+        p1 = dict(model1.named_parameters())
+        for name, p in model2.named_parameters():
+            check(torch.equal(p, p1[name]),
+                  f"trainer: resumed parameter {name} differs")
+            check(torch.equal(p1[name], p0[name]), f"trainer: parameter "
+                  f"{name} differs from the trainer phase's run")
+        check(rep2.selection_rounds == rep1.selection_rounds
+              == tr["report"].selection_rounds == 2,
+              f"trainer: selection rounds {rep1.selection_rounds} / "
+              f"{rep2.selection_rounds}")
+        check(rep2.work_units == rep1.work_units == tr["report"].work_units,
+              f"trainer: work {rep1.work_units} / {rep2.work_units}")
+        needs("trainer-resume", TRAINER_NEEDS["gradmatch"])
+        emit("resilience", part="trainer", epochs=2, checkpoint_every=1,
+             seconds={"checkpointed": run1_s, "resumed": run2_s},
+             selection_rounds=rep2.selection_rounds, work=rep2.work_units,
+             final_acc=[rep1.final_acc, rep2.final_acc], bit_equal=True,
+             launches=launches(("trainer-checkpointed", "trainer-resume"),
+                               TRAINER_NEEDS["gradmatch"]))
+        del model1, model2, p1
+
+        # 3. continual selection: the trainer's per-gradient proxies in
+        # batches of RES_BATCH through a RES_CAP-row buffer at k RES_K (the
+        # reference benchmark's settings, at the port's proxy width); the
+        # run killed after batch RES_KILL (its later snapshot deleted) and
+        # restored; the result against a fresh solve over the surviving
+        # rows.
+        pcg, _ = make_proxy_fn(tr["model"])(tr["train"].x, tr["train"].y)
+        d = pcg.shape[1]
+        target = pcg.sum(dim=0)
+        batches = [(pcg[i * RES_BATCH:(i + 1) * RES_BATCH],
+                    np.arange(i * RES_BATCH, (i + 1) * RES_BATCH))
+                   for i in range(RES_BATCHES)]
+
+        def buffer(**extra):
+            return BufferMaintainer(capacity=RES_CAP, d=d, target=target,
+                                    k=RES_K, compress=True, seed=0, **extra)
+
+        where = os.path.join(root, "continual")
+
+        def never_killed():
+            # a snapshot at batch RES_KILL (and at the last)
+            m = buffer(checkpoint_dir=where, checkpoint_every=RES_KILL)
+            m.admit(*batches[0])
+            mem_first = m.memory_bytes()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for rows, gids in batches[1:]:
+                m.admit(rows, gids)
+            torch.cuda.synchronize()
+            return m, mem_first, time.perf_counter() - t0
+
+        (m_ref, mem_first, steady_s), cont_s = measure("continual",
+                                                       never_killed)
+        # killed after batch RES_KILL: its later snapshot never written
+        shutil.rmtree(os.path.join(where, f"step_{RES_BATCHES:010d}"))
+
+        def restored():
+            res = BufferMaintainer.restore(where, device=dev)
+            check(res is not None and res.batches == RES_KILL,
+                  "continual: nothing to restore")
+            for rows, gids in batches[RES_KILL:]:
+                res.admit(rows, gids)
+            return res
+
+        m_res, res_s = measure("continual-resume", restored)
+        for path in ("continual", "continual-resume"):
+            needs(path, ("corr", "corr_argmax"))
+        same(m_res.slot_result(), m_ref.slot_result(),
+             "continual: the restored buffer against the never-killed one")
+        check(torch.equal(m_ref.pool_view()[0], m_res.pool_view()[0])
+              and np.array_equal(m_ref._gids, m_res._gids)
+              and np.array_equal(m_ref._trace.win, m_res._trace.win),
+              "continual: the restored pool, gids or trace differ")
+        pool, ok = m_ref.pool_view()
+        vs_fresh = agree(
+            torch, pool, target, m_ref.slot_result(),
+            omp.omp_select(pool, target, RES_K, valid=ok),
+            lambda t: omp.session_result(omp.omp_session_start(
+                pool, target, t, valid=ok, block=m_ref.block)),
+            lambda t: omp.omp_select(pool, target, t, valid=ok),
+            "continual against a fresh omp_select")
+        # its two kernels on its own data against the plain versions: the
+        # last batch's c0, the narrow scan of the pool view
+        cont_kernels = {
+            "corr": held_corr(batches[-1][0], target, "continual c0"),
+            "corr_argmax": held_argmax(pool, -m_ref._sess.st.residual, ok,
+                                       "the continual pool view")}
+        mst = m_ref.stats
+        emit("resilience", part="continual", capacity=RES_CAP, k=RES_K, d=d,
+             batch=RES_BATCH, batches=RES_BATCHES, kill_after=RES_KILL,
+             rows_per_s=RES_BATCH * (RES_BATCHES - 1) / steady_s,
+             seconds={"never_killed": cont_s, "restored": res_s},
+             memory_bytes_first=mem_first,
+             memory_bytes_last=m_ref.memory_bytes(), admits=mst.admits,
+             evicts=mst.evicts, downdates=mst.downdates,
+             resolves=mst.resolves, replayed_rounds=mst.rounds,
+             snapshots=m_ref.stats.checkpoints, bit_equal=True,
+             vs_fresh=vs_fresh, kernels=cont_kernels,
+             launches=launches(("continual", "continual-resume"),
+                               ("corr", "corr_argmax")))
+        check(m_ref.memory_bytes() == mem_first, "continual: memory grew "
+              f"from {mem_first} to {m_ref.memory_bytes()} bytes")
+        check(mst.admits == RES_BATCH * RES_BATCHES and mst.evicts > 0,
+              f"continual: {mst.admits} admits, {mst.evicts} evicts")
+
+        # the downdate of the last pick against a fresh solve (the
+        # reference benchmark's down_k / down_pool)
+        rng = np.random.default_rng(1)
+        g = torch.from_numpy(rng.standard_normal(DOWN_POOL).astype(
+            np.float32)).to(dev)
+        gt = g.sum(dim=0)
+
+        def wall(fn, reps):
+            out = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+            return statistics.median(out)
+
+        solves = []
+        solve_s = wall(lambda: solves.append(omp.omp_session_start(
+            g, gt, DOWN_K)), 2)
+        sess = solves[0]
+        last = int(sess.indices[DOWN_K - 1])
+        omp_downdate(g, sess, last)               # warm up
+        down_s = wall(lambda: omp_downdate(g, sess, last), 3)
+        down, info = omp_downdate(g, sess, last)
+        valid = torch.ones(DOWN_POOL[0], dtype=torch.bool, device=dev)
+        valid[last] = False
+        check(torch.equal(down.indices, omp.omp_session_start(
+            g, gt, DOWN_K - 1, valid=valid).indices),
+              "downdate: the picks differ from a fresh solve on the "
+              "surviving rows")
+        emit("resilience", part="downdate", pool=list(DOWN_POOL), k=DOWN_K,
+             downdate_ms=down_s * 1e3, resolve_ms=solve_s * 1e3,
+             speedup=solve_s / down_s, replayed=info.replayed,
+             reference_gate=5.0)
+
+        # 4. LM driver kill and resume: gemma-2b at full width, depth cut
+        # to RES_LM_LAYERS, RES_LM_STEPS steps with a snapshot every
+        # RES_LM_EVERY; the last snapshot deleted and the run again.
+        where = os.path.join(root, "lm")
+        argv = [*LM_ARGV, "--steps", str(RES_LM_STEPS), "--checkpoint-dir",
+                where, "--checkpoint-every", str(RES_LM_EVERY)]
+        n_params = sum(p.numel() for p in model.parameters())
+        with Timed(ckpt_lib, "_write", on_disk) as writes, \
+                Timed(ckpt_lib, "_host_flat", lambda out, args: {
+                    "gb": sum(a.nbytes for a in out[0].values()) / 1e9}
+                      ) as copies:
+            rep1, lm1_s = measure("lm-checkpointed",
+                                  lambda: lm_train.main(argv, model=model))
+            want = {name: p.detach().clone()
+                    for name, p in model.named_parameters()}
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(os.path.join(where, f"step_{RES_LM_STEPS:010d}"))
+            model = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(
+                1), dev)
+            rep2, lm2_s = measure("lm-resume",
+                                  lambda: lm_train.main(argv, model=model))
+        for path in ("lm-checkpointed", "lm-resume"):
+            needs(path, ("hidden_grad_tc", "corr", "corr_argmax"))
+        check(rep2["start_step"] == RES_LM_EVERY,
+              f"lm: resumed at step {rep2['start_step']}")
+        check(rep2["losses"] == rep1["losses"][RES_LM_EVERY:],
+              "lm: the resumed steps' losses differ")
+        for name, p in model.named_parameters():
+            check(torch.equal(p, want[name]), f"lm: resumed parameter "
+                  f"{name} differs")
+        emit("resilience", part="lm", arch="gemma-2b", params=n_params,
+             layers=RES_LM_LAYERS, steps=RES_LM_STEPS,
+             checkpoint_every=RES_LM_EVERY, resumed_at=rep2["start_step"],
+             seconds={"checkpointed": lm1_s, "resumed": lm2_s},
+             snapshots=writes, host_copies=copies,
+             losses_resumed=rep2["losses"], bit_equal=True,
+             launches=launches(("lm-checkpointed", "lm-resume"),
+                               ("hidden_grad_tc", "corr", "corr_argmax")))
+        del model, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5. degradation: the stochastic rung over the resumed streaming
+        # run's warm arena and over the (45 000, 65) proxies, at DEGRADE_K,
+        # with the kernels and with the plain versions.
+        gids_a = arena.gids.cpu().numpy()
+        live_a = np.flatnonzero((gids_a >= 0) & arena.ok.cpu().numpy())
+        cases = {
+            "fallback": (lambda: degrade.stochastic_fallback(
+                arena, part["target"], DEGRADE_K), part["target"],
+                arena.rows, live_a, gids_a),
+            "pool": (lambda: degrade.stochastic_pool_select(
+                pcg, target, DEGRADE_K), target, pcg,
+                np.arange(pcg.shape[0]), np.arange(pcg.shape[0]))}
+        degraded = {}
+        for what, (fn, tgt, src, cand, ids_of) in cases.items():
+            got, got_s = measure(f"degrade-{what}", fn)
+            needs(f"degrade-{what}", ("corr", "corr_argmax"))
+            ops.set_backend("ref")
+            try:
+                want_sel, want_s = measure(f"degrade-{what}-plain", fn)
+            finally:
+                ops.set_backend(None)
+            picks = got.indices[got.mask].tolist()
+            check(len(set(picks)) == DEGRADE_K
+                  and set(picks) <= set(ids_of[cand].tolist()),
+                  f"degrade {what}: the picks are not {DEGRADE_K} live rows")
+            # the rung's sample, and both solutions in its local ids
+            pick = degrade._sample(cand, DEGRADE_K, 0, 4, 256)
+            rows = src[torch.as_tensor(pick, device=dev)].float()
+            local_of = {int(g): i for i, g in enumerate(ids_of[pick])}
+
+            def local(s):
+                return (torch.tensor([local_of.get(int(i), -1)
+                                      for i in s.indices.tolist()],
+                                     dtype=torch.int32, device=dev),
+                        s.weights, s.mask, s.err)
+
+            def solve(t, mode, rows=rows, tgt=tgt):
+                ops.set_backend(mode)
+                try:
+                    return omp.omp_select(rows, tgt, t)
+                finally:
+                    ops.set_backend(None)
+
+            rec = agree(torch, rows, tgt, local(got), local(want_sel),
+                        lambda t: solve(t, None), lambda t: solve(t, "ref"),
+                        f"degrade {what}, kernels against plain")
+            kern = {"corr": held_corr(rows, tgt, f"degrade {what}"),
+                    "corr_argmax": held_argmax(
+                        rows, -tgt, torch.ones((rows.shape[0],),
+                                               dtype=torch.bool, device=dev),
+                        f"degrade {what}")}
+            degraded[what] = {"seconds": got_s, "plain_seconds": want_s,
+                              "sample": len(pick), "err": float(got.err),
+                              **rec, "kernels": kern, "launches": {
+                                  n: counts[f"degrade-{what}"][n]
+                                  for n in ("corr", "corr_argmax")}}
+        emit("resilience", part="degrade", k=DEGRADE_K, **degraded)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("resilience", what="phase", seconds=time.perf_counter() - t_phase)
+
+
 def lm_step_parts(torch, cfg, model, stream, args, proxy_fn) -> dict:
     """Median seconds of the LM loop's parts (drawing a micro-batch, the
     weighted loss's forward, its backward, the SGD update, one candidate's
@@ -3173,24 +3698,35 @@ def main() -> int:
     import repro_torch  # noqa: F401  (turns TF32 off)
 
     t_start = time.perf_counter()
-    card = phase_device(torch)
-    phase_build()
-    records = phase_kernels(torch, np, card)
-    phase_kernels_fl(torch, np, card, records)
-    phase_kernels_stream(torch, np, card, records)
-    phase_kernels_batched(torch, np, card, records)
-    tr = phase_trainer(torch, np)
-    phase_solve(torch, np, tr["model"], tr["train"])
-    phase_trace(torch, tr["model"], tr["train"])
-    phase_sessions(torch, np, tr["model"], tr["train"])
-    ba = phase_batched(torch, np, tr["model"], tr["train"])
-    cr = phase_craig(torch, np, tr["train"], tr["val"])
-    st = phase_stream(torch, np, tr["train"], tr["val"])
-    pa = phase_partition(torch, np, tr["train"], tr["val"])
-    lm_ = phase_lm(torch, np, card, records)
+    phase_s = {}
+
+    def run(name, fn, *args):
+        """Run one phase; its wall seconds go into the "done" line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    card = run("device", phase_device, torch)
+    run("build", phase_build)
+    records = run("kernels", phase_kernels, torch, np, card)
+    run("kernels_fl", phase_kernels_fl, torch, np, card, records)
+    run("kernels_stream", phase_kernels_stream, torch, np, card, records)
+    run("kernels_batched", phase_kernels_batched, torch, np, card, records)
+    tr = run("trainer", phase_trainer, torch, np)
+    model, train = tr["model"], tr["train"]
+    run("solve", phase_solve, torch, np, model, train)
+    run("trace", phase_trace, torch, model, train)
+    run("sessions", phase_sessions, torch, np, model, train)
+    ba = run("batched", phase_batched, torch, np, model, train)
+    cr = run("craig", phase_craig, torch, np, train, tr["val"])
+    st = run("stream", phase_stream, torch, np, train, tr["val"])
+    pa = run("partition", phase_partition, torch, np, train, tr["val"])
+    run("resilience", phase_resilience, torch, np, tr, st["partial"])
+    lm_ = run("lm", phase_lm, torch, np, card, records)
     runs = (tr, ba, cr, st, pa, lm_)
-    kernels = kernels_line(torch, records, runs)
-    emit("done", seconds=time.perf_counter() - t_start)
+    kernels = run("kernels_line", kernels_line, torch, records, runs)
+    emit("done", seconds=time.perf_counter() - t_start, phases=phase_s)
     print(card["smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

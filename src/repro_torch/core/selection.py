@@ -8,9 +8,9 @@ greedy with identical selections, ``craig-lazy-otf`` = the same with the
 similarity rebuilt on the fly, ``craig-stochastic`` = seeded stochastic
 greedy), ``craig-pb``, ``glister``, ``gradmatch-stream`` (the certified
 streaming OMP of ``core/streaming.py``), ``gradmatch-partitioned``
-(partition-and-merge, ``core/partition.py``), ``random`` and ``full``; the
-reference's other strategies raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+(partition-and-merge, ``core/partition.py``), ``gradmatch-continual``
+(the bounded buffer of ``continual/buffer.py``), ``random`` and ``full``:
+every strategy of the reference.
 
 ``warm_start_epochs()`` is the paper's warm-start budget split (§4), and
 ``SelectionSchedule`` answers "is epoch t a selection epoch?".
@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.continual import buffer as continual_lib
 from repro_torch.core import craig as craig_lib
 from repro_torch.core import glister as glister_lib
 from repro_torch.core import gradmatch as gm_lib
@@ -32,7 +33,8 @@ from repro_torch.core import streaming as stream_lib
 from repro_torch.core.gradmatch import SelectionResult
 
 STRATEGIES = ("gradmatch", "gradmatch-pb", "gradmatch-stream",
-              "gradmatch-partitioned", "craig", "craig-lazy",
+              "gradmatch-partitioned", "gradmatch-continual", "craig",
+              "craig-lazy",
               "craig-lazy-otf", "craig-stochastic", "craig-pb", "glister",
               "random", "full")
 
@@ -45,11 +47,9 @@ _CRAIG_METHODS = {"craig": "dense", "craig-lazy": "lazy",
                   "craig-stochastic": "stochastic"}
 _CRAIG_ON_THE_FLY = frozenset({"craig-lazy-otf"})
 
-# Strategies of the JAX package that later slices port: the ROADMAP.md
-# queue 1 item, by its title.
-NOT_PORTED = {
-    "gradmatch-continual": 'queue 1, "Continual selection"',
-}
+# Strategies of the JAX package that later slices port, each with the
+# ROADMAP.md queue 1 item that ports it, by its title: none is left.
+NOT_PORTED: dict = {}
 
 
 def check_strategy(strategy: str) -> None:
@@ -79,6 +79,8 @@ def select(
     stream_buffer: int = 256,          # gradmatch-stream: top-M buffer slots
     stream_cache_bytes: int = stream_lib.DEFAULT_CACHE_BYTES,
     partitions: Optional[int] = None,  # gradmatch-partitioned: P (None: auto)
+    buffer_cap: Optional[int] = None,       # gradmatch-continual: buffer rows
+    continual_batch: Optional[int] = None,  # gradmatch-continual: admit size
 ) -> SelectionResult:
     """Resolve one selection round.  ``val_target`` switches isValid=True.
 
@@ -97,8 +99,12 @@ def select(
 
     ``"gradmatch-partitioned"`` runs partition-and-merge selection: one
     partition a class under ``"gradmatch"``'s per-class criteria, else
-    ``partitions`` hashed partitions (``None``: automatic).  A knob passed
-    to a strategy that cannot honour it is rejected, not ignored.
+    ``partitions`` hashed partitions (``None``: automatic).
+    ``"gradmatch-continual"`` streams the proxies through a bounded buffer
+    of ``buffer_cap`` rows (``None``: the whole pool, where it selects
+    pooled ``"gradmatch"``'s subset) in admission batches of
+    ``continual_batch``.  A knob passed to a strategy that cannot honour
+    it is rejected, not ignored.
     """
     check_strategy(strategy)
     if partitions is not None:
@@ -111,6 +117,16 @@ def select(
             raise ValueError(
                 f"partitions must be >= 1, got {partitions}; omit it (or "
                 "pass None) for automatic partition sizing")
+    for name, val in (("buffer_cap", buffer_cap),
+                      ("continual_batch", continual_batch)):
+        if val is None:
+            continue
+        if strategy != "gradmatch-continual":
+            raise ValueError(
+                f"{name}={val} only applies to 'gradmatch-continual', not "
+                f"{strategy!r} — it would be silently ignored")
+        if val < 1:
+            raise ValueError(f"{name} must be >= 1, got {val}")
     n = proxies.shape[0]
     dev = proxies.device
     if strategy == "full":
@@ -157,6 +173,11 @@ def select(
             labels=labels if use_labels else None,
             num_classes=num_classes if use_labels else 0,
             target=val_target, lam=lam, eps=eps, method=omp_method)
+    if strategy == "gradmatch-continual":
+        # Always pooled, like gradmatch-stream.
+        return continual_lib.continual_select(
+            proxies, k, target=val_target, capacity=buffer_cap,
+            batch=continual_batch, lam=lam, eps=eps)
     if strategy == "gradmatch-pb":
         return gm_lib.gradmatch_pb(
             proxies, batch_size, max(k // batch_size, 1), lam=lam, eps=eps,

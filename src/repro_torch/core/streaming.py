@@ -30,10 +30,11 @@ Port notes (what differs from the reference, and why):
   scratch slot one past the end of the array, which is cut off (an
   in-range sentinel would make duplicate writes race), so no write needs
   a host sync to filter its positions.
-* The solve's state lives in tensors updated in place.
-* Checkpoint/resume waits for ROADMAP.md queue 1, "Checkpoint and
-  resilience".  The ``score_chunk_fn`` hook takes the device-parallel
-  scorer ``distributed.pmap_chunk_topm``.
+* The solve's state lives in tensors updated in place, so a mid-solve
+  snapshot (``checkpoint_dir``) is taken only between commit blocks, as
+  host copies, under the reference's keys and in its on-disk format; the
+  arena masks' scratch slot is not saved.  The ``score_chunk_fn`` hook
+  takes the device-parallel scorer ``distributed.pmap_chunk_topm``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ from typing import Callable, Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import restore_to
+from repro_torch.checkpoint.solver_state import (load_solver_state,
+                                                 save_solver_state)
 from repro_torch.core.gradmatch import SelectionResult, _normalize
 from repro_torch.core.omp import _nnls_active_cached
 from repro_torch.device import resolve_device
@@ -422,6 +426,62 @@ class ChunkCache:
         pos = pos[(pos >= 0) & (pos < self.cap_rows)]
         self.ok[torch.as_tensor(pos, device=self.device)] = False
 
+    def state_dict(self) -> dict:
+        """Checkpointable snapshot, the reference's keys.  The entry table
+        is stored in LRU order, so a restore reproduces the eviction
+        behaviour, and so the solve, exactly."""
+        st = {"cache_bytes": np.int64(self.cache_bytes),
+              "d": np.int64(self.d),
+              "slot_rows": np.int64(self.slot_rows),
+              "cap_slots": np.int64(self.cap_slots),
+              "complete": np.int64(self.complete),
+              "insertions": np.int64(self.insertions),
+              "evictions": np.int64(self.evictions),
+              "ent_cidx": np.asarray(self._lru, np.int64),
+              "ent_slot": np.asarray(
+                  [self.entries[c][0] for c in self._lru], np.int64),
+              "ent_off": np.asarray(
+                  [self.entries[c][1] for c in self._lru], np.int64),
+              "ent_len": np.asarray(
+                  [self.entries[c][2] for c in self._lru], np.int64)}
+        if self.rows is not None:
+            st.update(rows=self.rows, norms=self.norms, errn=self.errn,
+                      gids=self.gids, ok=self.ok)
+        return st
+
+    def load_state(self, st: dict) -> None:
+        if int(st["d"]) != self.d:
+            raise ValueError(
+                f"cache checkpoint is for d={int(st['d'])}, "
+                f"this cache has d={self.d}")
+        self.cache_bytes = int(st["cache_bytes"])
+        self.cap_rows_budget = max(self.cache_bytes // self.bytes_per_row,
+                                   0)
+        self.slot_rows = int(st["slot_rows"])
+        self.cap_slots = int(st["cap_slots"])
+        self.complete = int(st["complete"])
+        self.insertions = int(st["insertions"])
+        self.evictions = int(st["evictions"])
+        self.entries = {}
+        self._lru = []
+        for c, s, o, ln in zip(np.asarray(st["ent_cidx"]).tolist(),
+                               np.asarray(st["ent_slot"]).tolist(),
+                               np.asarray(st["ent_off"]).tolist(),
+                               np.asarray(st["ent_len"]).tolist()):
+            self.entries[int(c)] = (int(s), int(o), int(ln))
+            self._lru.append(int(c))
+        if "rows" in st:
+            arena = restore_to({k: st[k] for k in ("rows", "norms", "errn",
+                                                   "gids", "ok")},
+                               self.device)
+            self.rows, self.norms, self.errn = (arena["rows"],
+                                                arena["norms"],
+                                                arena["errn"])
+            self.gids, self.ok = arena["gids"], arena["ok"]
+        else:
+            self.rows = self.norms = self.errn = None
+            self.gids = self.ok = None
+
     def stats(self) -> dict:
         return {"resident_chunks": len(self.entries),
                 "cap_slots": self.cap_slots,
@@ -760,12 +820,13 @@ class SelectStats:
     retries: int = 0            # transient faults retried (chunks + rows)
     quarantined: int = 0        # rows masked out after persistent
                                 # corruption (never silently selected)
-    checkpoints: int = 0        # mid-solve snapshots written (not ported)
-    resumes: int = 0            # solves resumed from a checkpoint (ditto)
-    admits: int = 0             # continual selection (not ported)
-    evicts: int = 0
-    downdates: int = 0
-    resolves: int = 0
+    checkpoints: int = 0        # mid-solve snapshots written
+    resumes: int = 0            # solves resumed from a checkpoint
+    admits: int = 0             # continual: rows admitted to the buffer
+    evicts: int = 0             # continual: buffer rows evicted (any tier)
+    downdates: int = 0          # continual: committed rows removed via the
+                                # decremental downdate path
+    resolves: int = 0           # continual: fail-closed full re-solves
     host_syncs: int = 0         # port only: commit-loop device reads
 
     @property
@@ -782,6 +843,11 @@ class SelectStats:
         if self.retries or self.quarantined:
             s += (f" retries={self.retries} "
                   f"quarantined={self.quarantined}")
+        if self.resumes:
+            s += f" resumes={self.resumes}"
+        if self.admits or self.evicts or self.downdates or self.resolves:
+            s += (f" admits={self.admits} evicts={self.evicts} "
+                  f"downdates={self.downdates} resolves={self.resolves}")
         return s
 
 
@@ -829,7 +895,9 @@ def omp_select_streaming(
     row_fetch: Optional[Callable] = None,    # ids -> exact f32 rows
     repair_slots: int = 512,             # annex width for exact-row repairs
     retry: Optional[RetryPolicy] = None,     # transient-fault recovery
-    checkpoint_dir: Optional[str] = None,    # not ported: raises
+    checkpoint_dir: Optional[str] = None,    # mid-solve snapshots
+    checkpoint_every: int = 8,           # committed rounds between saves
+    resume: bool = True,                 # pick up a prior checkpoint
     device: str | torch.device | None = None,
 ) -> StreamingOMPResult:
     """OMP over a chunked pool, with ``omp_select``'s selection, on
@@ -844,13 +912,12 @@ def omp_select_streaming(
     (default ``RetryPolicy()``) at whole-pass / fetch granularity; re-read
     chunks and fetched rows are verified against the cache's exact-norm
     sidecars, and rows that keep disagreeing are quarantined, never
-    selected.  ``checkpoint_dir`` raises: checkpoint/resume is ROADMAP.md
-    queue 1, "Checkpoint and resilience".
+    selected.  With ``checkpoint_dir`` the commit-loop state is saved every
+    ``checkpoint_every`` committed rounds (between commit blocks, as host
+    copies, in the reference's format and keys), and a later call with the
+    same arguments resumes from it bit for bit; ``resume=False`` ignores
+    an existing snapshot, and one written by an incompatible solve raises.
     """
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "streaming checkpoint/resume is not ported to repro_torch yet: "
-            'ROADMAP.md queue 1, "Checkpoint and resilience"')
     dev = resolve_device(device)
     target = torch.as_tensor(target, dtype=torch.float32).to(dev)
     d = target.shape[0]
@@ -899,6 +966,7 @@ def omp_select_streaming(
     num_chunks = 0
     quarantined: set[int] = set()   # global ids failed closed (corruption)
     corrupt_seen: dict[int, int] = {}   # chunk idx -> mismatched reads
+    last_ckpt = 0
 
     def _note_retry(attempt, exc) -> None:
         stats.retries += 1
@@ -1181,8 +1249,104 @@ def omp_select_streaming(
         chunk_off_d = _idx(off)
         slot_lo_d = _idx(slo)
 
-    if cache.complete > 0 and cache.covers(cache.complete) and (
-            row_fetch is not None):
+    def capture_tree() -> dict:
+        """Everything the commit loop needs to resume bit for bit, under
+        the reference's keys: the committed prefix, the buffer and annex,
+        the sketch state, the cache's manifest and arena, the per-solve
+        arena masks (without their scratch slot), host bookkeeping and
+        stats.  Device tensors are copied to the host by the save."""
+        tree = {
+            "cfg": {"k": np.int64(k), "d": np.int64(d),
+                    "big_m": np.int64(big_m), "annex": np.int64(annex),
+                    "block": np.int64(block),
+                    "absolute": np.int64(absolute),
+                    "nnls_iters": np.int64(nnls_iters),
+                    "lam": np.float64(lam), "eps": np.float64(eps)},
+            "solver": {"t": np.int64(t), "err": np.float64(err),
+                       "t_first": np.int64(t_first),
+                       "need_refresh": np.int64(need_refresh),
+                       "annex_cursor": np.int64(annex_cursor),
+                       "num_chunks": np.int64(num_chunks),
+                       "indices": st.indices, "mask": st.mask,
+                       "weights": st.weights, "rows": st.rows,
+                       "gram": st.gram, "absrow": st.absrow,
+                       "tcorr": st.tcorr, "residual": st.residual,
+                       "r0": r0, "bi": bi, "br": br, "bdead": bdead,
+                       "chunk_thresh": chunk_thresh,
+                       "chunk_norm": chunk_norm,
+                       "chunk_cached": chunk_cached},
+            "host": {"chunk_off": np.asarray(
+                         [mm[0] for mm in chunk_meta], np.int64),
+                     "chunk_len": np.asarray(
+                         [mm[1] for mm in chunk_meta], np.int64),
+                     "chunk_norm_host": np.asarray(chunk_norm_host,
+                                                   np.float64),
+                     "quarantined": np.asarray(sorted(quarantined),
+                                               np.int64)},
+            "stats": {kk: np.int64(vv) for kk, vv in vars(stats).items()},
+            "arena": cache.state_dict(),
+        }
+        if ar_taken is not None:
+            cap_r = ar_taken.shape[0] - 1
+            tree["masks"] = {"ar_taken": ar_taken[:cap_r],
+                             "ar_inbuf": ar_inbuf[:cap_r]}
+        return tree
+
+    need_refresh = True
+    t_first = -1
+    resumed = False
+    tree = (load_solver_state(checkpoint_dir)
+            if checkpoint_dir is not None and resume else None)
+    if tree is not None:
+        cfg = tree["cfg"]
+        want = {"k": k, "d": d, "big_m": big_m, "annex": annex,
+                "block": int(block), "absolute": int(absolute),
+                "nnls_iters": int(nnls_iters)}
+        got = {kk: int(cfg[kk]) for kk in want}
+        if (got != want or float(cfg["lam"]) != float(lam)
+                or float(cfg["eps"]) != float(eps)):
+            raise ValueError(
+                f"checkpoint under {checkpoint_dir!r} was written by an "
+                f"incompatible solve (saved {got}, this solve {want}): "
+                "pass resume=False or a fresh checkpoint_dir")
+        sol = restore_to(tree["solver"], dev)
+        t = int(sol["t"])
+        err = float(sol["err"])
+        t_first = int(sol["t_first"])
+        need_refresh = bool(int(sol["need_refresh"]))
+        annex_cursor = int(sol["annex_cursor"])
+        num_chunks = int(sol["num_chunks"])
+        st = _Prefix(indices=sol["indices"], mask=sol["mask"],
+                     weights=sol["weights"], rows=sol["rows"],
+                     gram=sol["gram"], absrow=sol["absrow"],
+                     tcorr=sol["tcorr"], residual=sol["residual"],
+                     err=torch.tensor(err, **f32))
+        r0, bi, br, bdead = sol["r0"], sol["bi"], sol["br"], sol["bdead"]
+        chunk_thresh = sol["chunk_thresh"]
+        chunk_norm = sol["chunk_norm"]
+        chunk_cached = sol["chunk_cached"]
+        host = tree["host"]
+        chunk_meta.extend(
+            zip(np.asarray(host["chunk_off"]).tolist(),
+                np.asarray(host["chunk_len"]).tolist()))
+        chunk_norm_host.extend(
+            float(x) for x in np.asarray(host["chunk_norm_host"]))
+        quarantined.update(int(x) for x in np.asarray(host["quarantined"]))
+        for kk, vv in tree["stats"].items():
+            setattr(stats, kk, int(vv))
+        cache.load_state(tree["arena"])
+        if "masks" in tree:
+            masks = restore_to(tree["masks"], dev)
+            no = torch.zeros((1,), dtype=torch.bool, device=dev)
+            ar_taken = torch.cat([masks["ar_taken"], no])
+            ar_inbuf = torch.cat([masks["ar_inbuf"], no])
+        rebuild_chunk_map()
+        stats.resumes += 1
+        last_ckpt = t
+        resumed = True
+
+    if (not resumed and cache.complete > 0
+            and cache.covers(cache.complete) and row_fetch is not None):
         # Bootstrap from a pre-warmed cache (a warming pass already paid
         # the summing pass and filled it): the first buffer refresh is a
         # cache refill, so this solve touches the loader zero times.
@@ -1203,8 +1367,6 @@ def omp_select_streaming(
         sync_arena_masks()
         rebuild_chunk_map()
 
-    need_refresh = True
-    t_first = -1
     while t < k and err > eps:
         if need_refresh:
             if not cache_refill():
@@ -1235,6 +1397,11 @@ def omp_select_streaming(
         stats.cache_misses += certified * (num_chunks - len(cache.entries))
         t = t_new
         t_first = -1
+        if (checkpoint_dir is not None and bi is not None and t > last_ckpt
+                and t - last_ckpt >= checkpoint_every):
+            save_solver_state(checkpoint_dir, t, capture_tree())
+            last_ckpt = t
+            stats.checkpoints += 1
         if t >= k or err <= eps:
             break
         if go:
@@ -1295,6 +1462,8 @@ def gradmatch_streaming(
     row_fetch: Optional[Callable] = None,
     retry: Optional[RetryPolicy] = None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 8,
+    resume: bool = True,
     device: str | torch.device | None = None,
 ) -> SelectionResult:
     """GRAD-MATCH over a chunked pool on ``device`` (``None``: the card);
@@ -1313,7 +1482,8 @@ def gradmatch_streaming(
         pool_iter, target, k, lam=lam, eps=eps, buffer_size=buffer_size,
         chunk_topm=chunk_topm, score_chunk_fn=score_chunk_fn, cache=cache,
         cache_bytes=cache_bytes, row_fetch=row_fetch, retry=retry,
-        checkpoint_dir=checkpoint_dir, device=dev)
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        resume=resume, device=dev)
     return SelectionResult(out.indices, _normalize(out.weights, out.mask),
                            out.mask, out.err, out.stats)
 

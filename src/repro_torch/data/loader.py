@@ -8,6 +8,10 @@ walks one permutation of the subset, drawn from a seeded
 every SGD step sees the same objective scale.  Batches are gathered on the
 device, with no host round trip per step.
 
+``checkpoint_state`` / ``restore_state`` carry the walk (the selection,
+the permutation, the cursor and the generator's state, where the
+reference keeps a PRNG key) across a kill and resume.
+
 ``ChunkedPool`` is the fixed-size, re-iterable chunk view that feeds
 ``core/streaming.py``.
 """
@@ -142,3 +146,27 @@ class SubsetLoader:
     def epoch_batches(self) -> Iterator[dict]:
         for _ in range(self.steps_per_epoch()):
             yield self.next_batch()
+
+    # -- checkpointing ---------------------------------------------------------
+    def checkpoint_state(self) -> dict:
+        return {
+            "cursor": np.int64(self._cursor),
+            "perm": self._perm,
+            "gen_state": self._gen.get_state(),
+            "sel_idx": self._sel_idx,
+            "sel_w": self._sel_w,
+        }
+
+    def restore_state(self, st: dict) -> None:
+        dev = self.x.device
+
+        def on_dev(a, dtype):
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+                np.asarray(a))
+            return t.to(device=dev, dtype=dtype)
+
+        self._cursor = int(st["cursor"])
+        self._perm = on_dev(st["perm"], torch.int64)
+        self._gen.set_state(on_dev(st["gen_state"], torch.uint8).cpu())
+        self._sel_idx = on_dev(st["sel_idx"], torch.int64)
+        self._sel_w = on_dev(st["sel_w"], torch.float32)

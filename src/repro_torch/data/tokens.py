@@ -4,7 +4,8 @@ Batch ``step`` of shard ``shard`` is a pure function of ``(seed, step,
 shard)``: a ``torch.Generator`` on the batch's device is seeded from the
 three numbers by ``stream_seed`` (splitmix64 of the seed, then of that
 value xor the step, then of that xor the shard), so a restart from any step
-draws the same batches with no iterator state.
+draws the same batches with no iterator state: ``state(step)`` is all a
+checkpoint holds of it.
 
 Token distribution, as in the reference: Zipf unigram marginals
 (``-alpha log rank``) under a sticky latent chain over ``n_latent`` states
@@ -105,3 +106,11 @@ class TokenStream:
     def batch(self, step: int, shard: int = 0) -> dict:
         return token_batch(self.seed, step, shard, self.batch_per_shard,
                            self.seq_len, self.vocab, device=self.device)
+
+    def state(self, step: int) -> dict:
+        """Checkpointable pipeline state: the step index (and the seed)."""
+        return {"step": step, "seed": self.seed}
+
+    @staticmethod
+    def resume(state: dict) -> int:
+        return int(state["step"])

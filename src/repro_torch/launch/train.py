@@ -12,12 +12,17 @@ the port runs the dense attention archs).  The loop is the reference's:
     subset of the micro-batches (``core.gradmatch``, kernels ``corr`` and
     ``corr_argmax``);
   - one weighted SGD step (momentum 0.9, warmup + cosine) on one selected
-    micro-batch a step.
+    micro-batch a step;
+  - with ``--checkpoint-dir``, an async snapshot every ``--checkpoint-every``
+    steps (parameters, SGD state, the current selection, the token
+    stream's state) in the reference's format, and auto-resume from the
+    latest one (``[resume] from step N``): a killed run, resumed, takes
+    the steps of a run never killed, bit for bit.
 
 It runs on the card unless ``--device cpu`` asks for the CPU; a missing card
 raises.  One device only: ``--mesh-data``/``--mesh-model`` above 1 and
-``--fsdp`` raise (ROADMAP queue 1, "The rest of the LM side", (g)), as
-does ``--checkpoint-dir`` (queue 1, "Checkpoint and resilience").  Example::
+``--fsdp`` raise (ROADMAP queue 1, "The rest of the LM side", (g)).
+Example::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke \\
       --device cpu --steps 100 --select-every 20 --budget 0.25
@@ -31,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager, restore_to
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import gradmatch as gm_lib
 from repro_torch.data.tokens import TokenStream
@@ -88,10 +94,6 @@ def main(argv=None, *, stream=None, model: lm_lib.LM | None = None) -> dict:
             "the port's driver runs on one device: --mesh-data/--mesh-model "
             "> 1 and --fsdp are not ported yet (ROADMAP queue 1, \"The "
             "rest of the LM side\", (g))")
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            "--checkpoint-dir: checkpointing is not ported yet (ROADMAP "
-            "queue 1, \"Checkpoint and resilience\")")
     device = resolve_device(args.device)
     if model is not None:
         cfg = model.cfg
@@ -113,17 +115,35 @@ def main(argv=None, *, stream=None, model: lm_lib.LM | None = None) -> dict:
                              seq_len=args.seq_len, vocab=cfg.vocab_size,
                              n_shards=args.window, device=device)
 
+    ckpt = (CheckpointManager(args.checkpoint_dir)
+            if args.checkpoint_dir else None)
+    params = dict(model.named_parameters())
+
     # Current selection over the candidate window (micro-batch granularity).
     k_batches = max(int(args.window * args.budget), 1)
     sel_batches = np.arange(k_batches)
     sel_weights = np.full((k_batches,), 1.0 / k_batches, np.float32)
 
+    start_step = 0
+    if ckpt is not None and ckpt.latest_step() is not None:
+        snap = ckpt.restore()
+        with torch.no_grad():
+            for name, val in restore_to(snap["params"], device).items():
+                params[name].copy_(val)
+        opt.load_state_tree(restore_to(snap["opt_state"], device), params)
+        start_step = TokenStream.resume(snap["meta"])
+        # The selection in force (the reference's snapshot lacks it, so a
+        # resume between selection steps would train on another one).
+        sel_batches = np.asarray(snap["selection"]["batches"], np.int64)
+        sel_weights = np.asarray(snap["selection"]["weights"], np.float32)
+        print(f"[resume] from step {start_step}")
+
     losses, selections = [], []
     t0 = time.perf_counter()
     sel_seconds = 0.0
-    window_round = 0
+    window_round = start_step // args.select_every
 
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
         # --- selection round: pick micro-batches from the upcoming window --
         if args.strategy != "full" and step % args.select_every == 0:
             window_round = step // args.select_every
@@ -157,12 +177,24 @@ def main(argv=None, *, stream=None, model: lm_lib.LM | None = None) -> dict:
         metrics = step_fn(batch)
         losses.append(float(metrics["loss"]))
 
+        if ckpt is not None and (step + 1) % args.checkpoint_every == 0:
+            ckpt.save(step + 1, {
+                "params": params,
+                "opt_state": opt.state_tree(params),
+                "meta": {"step": step + 1, "seed": args.seed},
+                "selection": {"batches": np.asarray(sel_batches, np.int64),
+                              "weights": sel_weights},
+            })
+
+    if ckpt is not None:
+        ckpt.wait()
     wall = time.perf_counter() - t0
     report = {
         "arch": args.arch, "strategy": args.strategy,
         "loss_first": float(np.mean(losses[:5])),
         "loss_last": float(np.mean(losses[-5:])),
-        "steps": args.steps, "wall_s": wall, "selection_s": sel_seconds,
+        "steps": args.steps, "start_step": start_step, "wall_s": wall,
+        "selection_s": sel_seconds,
         "params": count_params(model), "device": str(device),
     }
     print(report)

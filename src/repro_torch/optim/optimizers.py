@@ -4,12 +4,16 @@
 The learning rate is read at the step count *before* the increment, weight
 decay is added to the gradient before momentum, and there is no dampening:
 ``m = momentum * m + (g + wd * p)`` and ``p -= lr(step) * m``.
+``state_tree`` / ``load_state_tree`` are the optimizer's part of a
+checkpoint, the reference's ``OptState``: the step count and the f32
+momentum slots by parameter name.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Iterable, Union
 
+import numpy as np
 import torch
 
 Schedule = Union[float, Callable[[int], float]]
@@ -58,6 +62,21 @@ class SGD(torch.optim.Optimizer):
                     d = g
                 p.add_((-lr_t * d).to(p.dtype))
         self.step_count += 1
+
+    def state_tree(self, named: dict) -> dict:
+        """``{"step", "slots": {name: momentum}}`` for the named
+        parameters (the slots themselves: a checkpoint save copies them)."""
+        return {"step": np.int64(self.step_count),
+                "slots": {name: self.state[p]["momentum"]
+                          for name, p in named.items()
+                          if "momentum" in self.state[p]}}
+
+    def load_state_tree(self, tree: dict, named: dict) -> None:
+        """Resume from ``state_tree``'s output, its slots already tensors
+        on the parameters' device (``checkpoint.restore_to``)."""
+        self.step_count = int(tree["step"])
+        for name, slot in tree.get("slots", {}).items():
+            self.state[named[name]]["momentum"] = slot
 
 def sgd(params: Iterable[torch.Tensor], lr: Schedule, momentum: float = 0.0,
         weight_decay: float = 0.0, nesterov: bool = False) -> SGD:

@@ -10,6 +10,13 @@ Cost accounting is the reference's: one work unit is one example forward;
 training costs 3 units an example, a selection's proxy pass 1 unit a pool
 row.  Selection and wall seconds are host clock times around work that ends
 in a device sync.
+
+Fault tolerance, the reference's: ``checkpoint_dir`` makes the trainer
+snapshot the parameters, the SGD state (step count and momentum slots),
+the loader's state (selection, walk, generator) and the run's counters
+every ``checkpoint_every`` epochs through the async ``CheckpointManager``,
+and ``run()`` resumes from the latest snapshot if one exists: a killed
+run, resumed, ends with the parameters of a run never killed, bit for bit.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager, restore_to
 from repro_torch.configs.paper import ClassifierConfig, PaperHParams
 from repro_torch.core import proxies as proxy_lib
 from repro_torch.core import selection as sel_lib
@@ -54,7 +62,8 @@ class TrainerConfig:
     stream_buffer: int = 256           # gradmatch-stream: top-M buffer slots
     stream_cache_bytes: int = 256 << 20  # gradmatch-stream: chunk cache
     seed: int = 0
-    checkpoint_dir: Optional[str] = None   # not ported: see __init__
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 20
     eval_every: int = 5
 
 
@@ -81,10 +90,6 @@ class AdaptiveTrainer:
     def __init__(self, model_cfg: ClassifierConfig, tcfg: TrainerConfig,
                  train: Dataset, val: Dataset, test: Optional[Dataset] = None,
                  device: str | torch.device | None = None):
-        if tcfg.checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpointing is not ported to repro_torch yet: ROADMAP.md "
-                "queue 1, \"Checkpoint and resilience\"")
         sel_lib.check_strategy(tcfg.strategy)
         self.device = resolve_device(device)
         self.mcfg = model_cfg
@@ -92,6 +97,8 @@ class AdaptiveTrainer:
         self.train_ds = train.to(self.device)
         self.val_ds = val.to(self.device)
         self.test_ds = (test if test is not None else val).to(self.device)
+        self.ckpt = (CheckpointManager(tcfg.checkpoint_dir)
+                     if tcfg.checkpoint_dir else None)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -182,6 +189,7 @@ class AdaptiveTrainer:
         sched = sel_lib.SelectionSchedule(hp.select_every, warm_epochs,
                                           total_epochs=epochs)
 
+        start_epoch = 0
         work = 0.0
         sel_seconds = 0.0
         sel_rounds = 0
@@ -191,8 +199,23 @@ class AdaptiveTrainer:
                     torch.full((n,), 1.0 / n, device=self.device),
                     torch.ones((n,), dtype=torch.bool, device=self.device))
 
+        # -- resume -----------------------------------------------------------
+        if self.ckpt is not None and self.ckpt.latest_step() is not None:
+            snap = self.ckpt.restore()
+            params = dict(model.named_parameters())
+            with torch.no_grad():
+                for name, val in restore_to(snap["params"],
+                                            self.device).items():
+                    params[name].copy_(val)
+            opt.load_state_tree(restore_to(snap["opt_state"], self.device),
+                                params)
+            loader.restore_state(snap["loader"])
+            start_epoch = int(snap["meta"]["epoch"])
+            work = float(snap["meta"]["work"])
+            sel_rounds = int(snap["meta"]["sel_rounds"])
+
         t_wall = time.perf_counter()
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             in_warm = epoch < warm_epochs
             if (tc.strategy != "full" and not in_warm
                     and sched.is_selection_epoch(epoch)):
@@ -219,6 +242,19 @@ class AdaptiveTrainer:
                 acc_hist.append((epoch + 1, acc))
                 best = max(best, acc)
 
+            if (self.ckpt is not None
+                    and (epoch + 1) % tc.checkpoint_every == 0):
+                params = dict(model.named_parameters())
+                self.ckpt.save(epoch + 1, {
+                    "params": params,
+                    "opt_state": opt.state_tree(params),
+                    "loader": loader.checkpoint_state(),
+                    "meta": {"epoch": epoch + 1, "work": work,
+                             "sel_rounds": sel_rounds},
+                })
+
+        if self.ckpt is not None:
+            self.ckpt.wait()
         self._sync()
         wall = time.perf_counter() - t_wall
         final = acc_hist[-1][1] if acc_hist else 0.0

@@ -39,8 +39,23 @@ def test_port_files_exist():
                  "src/repro_torch/models/ffn.py",
                  "src/repro_torch/data/tokens.py",
                  "src/repro_torch/configs/base.py",
-                 "src/repro_torch/configs/gemma_2b.py"):
+                 "src/repro_torch/configs/gemma_2b.py",
+                 "src/repro_torch/checkpoint/checkpoint.py",
+                 "src/repro_torch/checkpoint/solver_state.py",
+                 "src/repro_torch/resilience/faults.py",
+                 "src/repro_torch/resilience/circuit.py",
+                 "src/repro_torch/resilience/degrade.py",
+                 "src/repro_torch/core/decremental.py",
+                 "src/repro_torch/continual/buffer.py"):
         assert must in names
+
+
+def test_port_imports_no_ml_dtypes():
+    """The card's machine has no ``ml_dtypes``: bf16 checkpoints go
+    through tensor views."""
+    for path in PORT_FILES:
+        assert "ml_dtypes" not in {m.split(".")[0] for m in _imports(path)}, (
+            path)
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -76,6 +91,9 @@ def test_entry_points_refuse_the_cpu_without_being_asked():
     ds = make_classification(n=16, dim=4, num_classes=2, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         AdaptiveTrainer(mlp(in_dim=4, num_classes=2), TrainerConfig(), ds, ds)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AdaptiveTrainer(mlp(in_dim=4, num_classes=2),
+                        TrainerConfig(checkpoint_dir="unused"), ds, ds)
     # asked for explicitly, the CPU is fine
     AdaptiveTrainer(mlp(in_dim=4, num_classes=2), TrainerConfig(), ds, ds,
                     device="cpu")
@@ -134,6 +152,31 @@ def test_partition_entry_points_refuse_the_cpu_without_being_asked():
     # asked for explicitly, the CPU is fine
     out = partition.gradmatch_partitioned(g, 2, device="cpu")
     assert out.indices.device.type == "cpu"
+
+
+def test_continual_entry_points_refuse_the_cpu_without_being_asked(
+        tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    import numpy as np
+
+    from repro_torch.continual import BufferMaintainer, continual_select
+    from repro_torch.resilience.degrade import stochastic_pool_select
+
+    g = np.ones((16, 3), np.float32)
+    for call in (lambda: BufferMaintainer(8, 3, g.sum(0), 2),
+                 lambda: continual_select(g, 2),
+                 lambda: stochastic_pool_select(g, g.sum(0), 2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    m = BufferMaintainer(8, 3, g.sum(0), 2, device="cpu",
+                         checkpoint_dir=str(tmp_path))
+    m.admit(g[:4])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BufferMaintainer.restore(str(tmp_path))
+    # asked for explicitly, the CPU is fine
+    assert continual_select(g, 2, device="cpu").indices.device.type == "cpu"
+    assert BufferMaintainer.restore(str(tmp_path), device="cpu").batches == 1
 
 
 def test_lm_driver_refuses_the_cpu_without_being_asked():

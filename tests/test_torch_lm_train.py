@@ -10,6 +10,10 @@ micro-batch picks must be index-exact, the weights within rtol 1e-4 /
 atol 1e-5, and every step's loss within 1e-5 relative (measured: 1e-7).
 """
 
+import json
+import os
+import shutil
+
 import numpy as np
 import pytest
 
@@ -22,6 +26,7 @@ from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.data.tokens import TokenStream as JaxTokenStream  # noqa: E402
 from repro.data.tokens import token_batch as jax_token_batch  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
+from repro_torch.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.data.tokens import (TokenStream, latent_logits,  # noqa: E402
                                      stream_seed, token_batch)
@@ -123,11 +128,73 @@ def test_driver_runs_each_strategy_on_its_own_stream(strategy):
 @pytest.mark.parametrize("flags,item", [
     (["--mesh-data", "2"], "The rest of the LM side"),
     (["--mesh-model", "2"], "The rest of the LM side"),
-    (["--fsdp"], "The rest of the LM side"),
-    (["--checkpoint-dir", "ck"], "Checkpoint and resilience")])
+    (["--fsdp"], "The rest of the LM side")])
 def test_driver_refuses_what_is_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train.main(["--smoke", "--device", "cpu", *flags])
+
+
+SMALL = ["--smoke", "--device", "cpu", "--window", "4", "--micro-batch",
+         "2", "--seq-len", "8", "--select-every", "3"]
+
+
+def test_driver_writes_a_snapshot_and_resumes_from_it(tmp_path, capsys):
+    """``--checkpoint-dir``: snapshots every ``--checkpoint-every`` steps
+    in the reference's format (bf16 parameters under the dtype name
+    ``bfloat16``), and a second call resumes from the latest, saying
+    so."""
+    argv = [*SMALL, "--steps", "4", "--checkpoint-dir", str(tmp_path),
+            "--checkpoint-every", "2"]
+    rep = train.main(argv)
+    assert rep["start_step"] == 0 and len(rep["losses"]) == 4
+    assert sorted(os.listdir(tmp_path)) == ["step_0000000002",
+                                            "step_0000000004"]
+    with open(tmp_path / "step_0000000004" / "manifest.json") as f:
+        man = json.load(f)
+    assert man["step"] == 4
+    assert "bfloat16" in man["dtypes"].values()
+    assert {"meta/step", "meta/seed", "opt_state/step", "selection/batches",
+            "selection/weights"} <= set(man["keys"])
+    snap = load_checkpoint(str(tmp_path))
+    assert int(snap["meta"]["step"]) == 4 and int(
+        snap["opt_state"]["step"]) == 4
+    capsys.readouterr()
+    again = train.main([*SMALL, "--steps", "6", "--checkpoint-dir",
+                        str(tmp_path), "--checkpoint-every", "2"])
+    assert "[resume] from step 4" in capsys.readouterr().out
+    assert again["start_step"] == 4 and len(again["losses"]) == 2
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else (
+        torch.from_numpy(np.asarray(t)))
+
+
+def test_driver_killed_and_resumed_equals_never_killed(tmp_path):
+    """The driver at ``--smoke``, killed after step 4 (its step-8 snapshot
+    lost) and resumed in the middle of a selection window: the resumed
+    steps' losses, the later selection, and the final parameters and SGD
+    state equal the never-killed run's, bit for bit (the selection in
+    force is part of the snapshot)."""
+    argv = [*SMALL, "--steps", "8", "--checkpoint-dir", str(tmp_path),
+            "--checkpoint-every", "4"]
+    full = train.main(argv)
+    want = load_checkpoint(str(tmp_path), 8)
+    shutil.rmtree(tmp_path / "step_0000000008")
+    resumed = train.main(argv)
+    got = load_checkpoint(str(tmp_path), 8)
+    assert resumed["start_step"] == 4
+    assert resumed["losses"] == full["losses"][4:]
+    assert resumed["selections"] == [s for s in full["selections"]
+                                     if s["round"] == 2]
+    assert sorted(got["params"]) == sorted(want["params"])
+    for part in ("params", "opt_state/slots"):
+        a, b = got, want
+        for key in part.split("/"):
+            a, b = a[key], b[key]
+        for name in b:
+            assert torch.equal(_bits(a[name]), _bits(b[name])), (part, name)
+    assert int(got["opt_state"]["step"]) == int(want["opt_state"]["step"])
 
 
 def test_token_stream_is_a_pure_function_of_seed_step_shard():

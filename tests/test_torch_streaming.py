@@ -702,13 +702,28 @@ def test_persistent_row_corruption_quarantined_on_warm_cache():
 
 
 def test_checkpoint_dir_not_ported(tmp_path):
-    g = _pool(1, 32, 4)
-    with pytest.raises(NotImplementedError, match="Checkpoint and resilience"):
-        T.omp_select_streaming(T.array_chunks(g, 8), g.sum(0), 4,
-                               checkpoint_dir=str(tmp_path), device=CPU)
-    with pytest.raises(NotImplementedError, match="Checkpoint and resilience"):
-        T.gradmatch_streaming(T.array_chunks(g, 8), 4,
-                              checkpoint_dir=str(tmp_path), device=CPU)
+    """``checkpoint_dir``: a solve killed when its stream dies resumes
+    from its snapshot to the never-killed solve's bits, through both entry
+    points."""
+    g = _pool(1, 96, 4)
+    chunks = T.array_chunks(g, 16)
+    kw = dict(buffer_size=8, cache_bytes=0, retry=FAST, device=CPU)
+    ref = T.omp_select_streaming(chunks, g.sum(0), 12, **kw)
+    dying = tfaults.FaultyChunkIterator(
+        chunks, tfaults.FaultPlan(die_after_chunks=20))
+    with pytest.raises(tfaults.StreamDied):
+        T.omp_select_streaming(dying, g.sum(0), 12, checkpoint_dir=str(
+            tmp_path / "a"), checkpoint_every=1, **kw)
+    out = T.omp_select_streaming(chunks, g.sum(0), 12, checkpoint_dir=str(
+        tmp_path / "a"), checkpoint_every=1, **kw)
+    assert out.stats.resumes == 1 and out.stats.passes == ref.stats.passes
+    assert torch.equal(out.indices, ref.indices)
+    assert torch.equal(out.weights, ref.weights)
+    sel = T.gradmatch_streaming(chunks, 12, buffer_size=8, cache_bytes=0,
+                                retry=FAST, checkpoint_dir=str(
+                                    tmp_path / "b"), device=CPU)
+    assert sel.stats.checkpoints == 1 and torch.equal(sel.indices,
+                                                      ref.indices)
 
 
 def test_streaming_equals_in_memory_solver_bit_for_bit(monkeypatch):

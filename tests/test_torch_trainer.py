@@ -3,6 +3,9 @@ selection round against the JAX trainer's, from the same numpy dataset and
 converted parameters; GRAD-MATCHPB learning end to end; the strategy
 dispatch and schedule checks."""
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 
@@ -17,6 +20,7 @@ from repro.core import selection as jsel  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
 from repro.models.classifier import init_classifier  # noqa: E402
 from repro.train import trainer as jtrainer  # noqa: E402
+from repro_torch.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.configs.paper import PaperHParams, mlp  # noqa: E402
 from repro_torch.core import selection as tsel  # noqa: E402
 from repro_torch.core.random_sel import random_select  # noqa: E402
@@ -204,21 +208,90 @@ def test_random_and_full_invariants():
     assert bool(valid[sel.indices.long()].all())
 
 
-def test_strategies_not_ported_raise():
+def test_strategies_not_ported_raise(tmp_path):
+    """Every strategy of the reference is ported (none raises "not
+    ported"); an unknown one is refused; a trainer with ``checkpoint_dir``
+    writes its snapshots."""
     proxies = torch.zeros((10, 2))
     for name in jsel.STRATEGIES:
         if name in tsel.STRATEGIES:
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsel.select(name, None, proxies, 3)
+    assert set(jsel.STRATEGIES) == set(tsel.STRATEGIES)
     with pytest.raises(ValueError):
         tsel.select("nope", None, proxies, 3)
     ds = tsyn.make_classification(n=64, dim=4, num_classes=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ttrainer.AdaptiveTrainer(mlp(in_dim=4, num_classes=2),
-                                 ttrainer.TrainerConfig(
-                                     checkpoint_dir="/nonexistent"), ds, ds,
-                                 device="cpu")
+    ttrainer.AdaptiveTrainer(
+        mlp(in_dim=4, num_classes=2),
+        ttrainer.TrainerConfig(strategy="random", epochs=2, batch_size=16,
+                               checkpoint_dir=str(tmp_path),
+                               checkpoint_every=1), ds, ds,
+        device="cpu").run()
+    assert sorted(os.listdir(tmp_path)) == ["step_0000000001",
+                                            "step_0000000002"]
+
+
+def test_resume_bit_exact(tmp_path):
+    """Interrupted and resumed training reproduces the uninterrupted run
+    bit for bit: the same selection rounds fired, the same parameters and
+    SGD state, the same work (``tests/test_trainer.py``'s case)."""
+    ds = tsyn.make_classification(n=1024, dim=24, num_classes=8, sep=5.0,
+                                  device="cpu")
+    train, val = tsyn.split(ds)
+    kw = dict(strategy="gradmatch-pb", checkpoint_dir=str(tmp_path),
+              checkpoint_every=4, seed=11, epochs=12)
+
+    def run():
+        return ttrainer.AdaptiveTrainer(
+            mlp(in_dim=24, num_classes=8), _cfg(ttrainer, PaperHParams,
+                                                **kw), train, val,
+            device="cpu").run()
+
+    rep1 = run()                          # snapshots at epochs 4, 8, 12
+    snap1 = load_checkpoint(str(tmp_path), 12)
+    # preemption after epoch 8: the final snapshot is lost
+    shutil.rmtree(tmp_path / "step_0000000012")
+    rep2 = run()   # picks up at epoch 8, re-fires its selection, runs to 12
+    snap2 = load_checkpoint(str(tmp_path), 12)
+    assert rep2.selection_rounds == rep1.selection_rounds == 3
+    for part in ("params", "opt_state", "loader"):
+        keys = sorted(snap1[part])
+        assert keys == sorted(snap2[part])
+    for name in snap1["params"]:
+        np.testing.assert_array_equal(snap1["params"][name],
+                                      snap2["params"][name])
+        np.testing.assert_array_equal(snap1["opt_state"]["slots"][name],
+                                      snap2["opt_state"]["slots"][name])
+    assert snap1["meta"]["work"] == snap2["meta"]["work"]
+    assert int(snap1["opt_state"]["step"]) == int(snap2["opt_state"]["step"])
+
+
+def test_checkpoint_resume_continues(tmp_path):
+    """A run stopped early (fewer epochs: preemption at epoch 8) is
+    continued by the full schedule from its snapshot, not from scratch:
+    the work carries over (``tests/test_trainer.py``'s case); a finished
+    run resumed has no epoch left."""
+    ds = tsyn.make_classification(n=1024, dim=24, num_classes=8, sep=5.0,
+                                  device="cpu")
+    train, val = tsyn.split(ds)
+    kw = dict(strategy="gradmatch-pb", checkpoint_dir=str(tmp_path),
+              checkpoint_every=4, seed=7)
+
+    def run(epochs, **kw):
+        return ttrainer.AdaptiveTrainer(
+            mlp(in_dim=24, num_classes=8),
+            _cfg(ttrainer, PaperHParams, epochs=epochs, **kw), train, val,
+            device="cpu").run()
+
+    run(8, **kw)
+    rep = run(12, **kw)
+    assert rep.final_acc > 0.25
+    solo = run(12, strategy="gradmatch-pb", seed=7)
+    assert rep.work_units < 1.25 * solo.work_units
+    again = run(12, **kw)                 # resumes at 12: nothing left
+    assert again.work_units == rep.work_units
+    assert again.selection_rounds == rep.selection_rounds
 
 
 @pytest.mark.parametrize("total,frac,kappa", [(60, 0.1, 0.5), (20, 0.3, 1.0),
