@@ -93,8 +93,8 @@ Phases, one JSON line each:
  10. partition (after ``stream``, before ``lm`` in the run) partitioned
               selection and the one-card paths of ``core/distributed.py``,
               each path's launch counts read on its own:
-              ``gradmatch-partitioned`` trained end to end at the trainer
-              phase's settings but one selection (R = 2; bias proxies, ten
+              ``gradmatch-partitioned`` trained end to end, one selection
+              at budget 0.02 over 10 epochs (R = 10; bias proxies, ten
               class partitions solved as one batched solve, the certified
               merge over the union):
               its union ``gradmatch_per_class``'s set, the merged picks
@@ -120,8 +120,8 @@ Phases, one JSON line each:
               snapshot every epoch, its epoch-2 snapshot deleted and run
               again (equal to the trainer phase's run); the trainer's
               per-gradient proxies in 110 batches of 128 through a
-              continual buffer of 1 024 rows at k 64, killed after batch 55
-              and restored (``corr``, ``corr_argmax``), against a fresh
+              continual buffer of 1 024 rows at k 64 (40 batches), killed
+              after batch 20 and restored (``corr``, ``corr_argmax``), against a fresh
               ``omp_select`` (``agree``), and the downdate of the last pick
               against a re-solve at k 512 over 2 048 x 64; the LM driver on
               gemma-2b at full width cut to 2 layers, 40 steps with a
@@ -132,6 +132,28 @@ Phases, one JSON line each:
               against their plain versions on the paths' own data.  Each
               resumed run is bit-equal to its never-killed run; the
               snapshots' seconds and sizes are printed;
+ 12. serve    (after ``resilience``) selection serving and the artifact
+              fast path on the trainer's per-gradient proxies (45 000, 65),
+              each path's launch counts read on its own: ``build_artifacts``
+              at k_max 512 and its self-check (slices at k 1 / 256 / 512
+              bit-equal to the live session, ``omp_select``'s picks or a
+              tie ``agree`` certifies); ``SelectionService(artifact_store=)``
+              answering at those k from the artifact, bit-equal to the live
+              session, at least 20x faster than a live submit and drain;
+              each disk fault on a copy of the store falling through to the
+              live bits, quarantined as the reference quarantines; ten
+              class-target requests from two tenants as one batched solve
+              padded to B 16, each against its ``omp_select`` and against
+              the same group on the plain versions; an extension 128 -> 192
+              against a one-shot 192; ``craig-lazy`` (on the fly),
+              ``glister``, ``random``, ``gradmatch-partitioned``, gradmatch
+              on the chunked pool (chunks of 1 024) and ``craig-lazy`` on
+              serve_selection's 4 096 x 64 pool (a resident similarity),
+              each bit-equal to a direct call of its engine;
+              ``serve_selection.main(["--smoke"])`` and ``["--load"]``; a
+              stream session (16 batches of 128 into 1 024 rows, k 64)
+              killed after batch 8 and resumed, bit-equal to the stream
+              never killed;
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -213,21 +235,36 @@ CRAIG_PATHS = ("craig-lazy", "craig-lazy-otf", "craig-stochastic",
 DENSE_K = 256             # rounds of the dense-oracle check
 PART_P = 4                # partitions of the hash, contiguous, stream paths
 PART_K = 512              # their budget: 128 rounds a partition
+PART_BUDGET = 0.02        # the trained gradmatch-partitioned's budget (cut
+PART_TRAIN_K = int(ROWS * PART_BUDGET)   # from 0.1: its merge's rounds),
+PART_EPOCHS = 10          # over 10 epochs: the trainer phase's 140 steps
 PART_PATHS = ("gradmatch-partitioned", "partitioned-hash",
               "partitioned-contiguous", "partitioned-stream", "sharded-pb",
               "fl-pmap")
 FL_PMAP_K = 64            # rounds of the device-sharded CRAIG greedy
 RES_BATCH = 128           # continual: rows an admission (the reference's
-RES_BATCHES = 110         # benchmark run_continual: 110 batches of 128
-RES_CAP = 1024            # into a 1 024-row buffer at k 64)
+RES_BATCHES = 40          # benchmark run_continual: 110 batches of 128
+RES_CAP = 1024            # into a 1 024-row buffer at k 64; cut to 40)
 RES_K = 64
-RES_KILL = 55             # the continual run is killed after this batch
+RES_KILL = 20             # the continual run is killed after this batch
 DOWN_POOL = (2048, 64)    # the downdate against a fresh solve: pool, k
 DOWN_K = 512
 DEGRADE_K = 225           # the stochastic rung's budget (cut from K)
 RES_LM_LAYERS = 2         # the LM kill and resume: gemma-2b cut to 2 layers
-RES_LM_STEPS = 40
-RES_LM_EVERY = 20
+RES_LM_STEPS = 30         # (cut from 40: one snapshot, at RES_LM_EVERY,
+RES_LM_EVERY = 20         # where three were written)
+SERVE_K_MAX = 512         # build_artifacts' default k_max
+SERVE_KS = (1, 256, 512)  # the artifact's slices held against the session
+SERVE_HIT_RATIO = 20.0    # an artifact hit against a live submit + drain
+SERVE_REQ_K = 128         # serve_selection's default k
+SERVE_EXT_K = 192         # and its default extension
+SERVE_BUCKET = 16         # ten requests pad to the power-of-two bucket
+SERVE_LAUNCHER_POOL = (4096, 64)    # serve_selection's default pool
+SERVE_STREAM = (128, 16, 1024, 64)  # stream: batch, batches, capacity, k
+SERVE_STREAM_KILL = 8     # the stream session is killed after this batch
+SERVE_KERNELS = ("corr", "corr_argmax", "bound_max", "fl_gain_argmax",
+                 "fl_gain_argmax_otf_tc", "corr_batched",
+                 "corr_argmax_batched")
 
 KERNEL_SOURCES = {
     "corr": ("src/repro_torch/kernels/csrc/corr.cu",
@@ -348,6 +385,95 @@ def bound_route(torch, shapes: dict) -> str:
                                  sms).route
 
 
+def bound_of(card: dict, nbytes: float, nops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for work that moves
+    ``nbytes`` and does ``nops`` f32 operations, and which of the two
+    sets it."""
+    bw, flops = peaks(card["name"])
+    by_bytes, by_ops = nbytes / bw * 1e3, nops / flops * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def ran_at(key: tuple) -> tuple[tuple, bool]:
+    """A launch-shape key, (kernel, rows, d, dtype[, B, per-problem]), as
+    the shape a record is measured at ((rows, d[, B])) and whether the
+    batched kernel read a per-problem matrix."""
+    _, n, d, _, *batch = key
+    return (n, d, *batch[:1]), bool(batch[1:] and batch[1])
+
+
+def hold_corr(torch, card: dict, g, r) -> dict:
+    """``corr`` against its plain version at ``g``'s shape (rtol 1e-5, atol
+    1e-6 of max |g_i| |r|), timed beside the plain version and
+    ``torch.mv``; returns the record."""
+    from repro_torch.kernels import corr as corr_k
+    from repro_torch.kernels import ref
+    n, d = g.shape
+    dt = str(g.dtype).removeprefix("torch.")
+    got, want = corr_k.corr(g, r), ref.corr_ref(g, r)
+    err = float((got - want).abs().max())
+    scale = float(torch.sqrt((g.float() ** 2).sum(1).max() * (r ** 2).sum()))
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-6 * max(scale, 1.0)),
+          f"corr kernel disagrees at ({n}, {d}) {dt}: max err {err}")
+    ms = device_ms(torch, lambda: corr_k.corr(g, r))
+    plain = device_ms(torch, lambda: ref.corr_ref(g, r))
+    lib_ms = device_ms(torch, lambda: torch.mv(g, r.to(g.dtype)))
+    b, by = bound_of(card, n * d * g.element_size() + 4 * d + 4 * n,
+                     2 * n * d)
+    emit("kernels", kernel="corr", shape=[n, d], dtype=dt, max_abs_err=err,
+         ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=lib_ms, shape=[n, d])
+
+
+def check_argmax(torch, c, w, base, mask, absolute, what) -> float:
+    """``corr_argmax`` against its plain version: the index equal unless
+    the two scores are within 1e-6 of each other, the value to rtol 1e-5;
+    returns the value's error."""
+    import math
+
+    from repro_torch.kernels import corr as corr_k
+    from repro_torch.kernels import ref
+    gi, gv = corr_k.corr_argmax(c, w, base, mask, absolute=absolute)
+    ri, rv = ref.corr_argmax_ref(c, w, base, mask, absolute=absolute)
+    gi, ri, gv, rv = int(gi), int(ri), float(gv), float(rv)
+    if gi != ri:
+        # Only a true near-tie under another summation order may differ.
+        s = base - c.float() @ w
+        s = s.abs() if absolute else s
+        a, b = float(s[gi]), float(s[ri])
+        check(bool(mask[gi]) and abs(a - b) <= 1e-6 * abs(b),
+              f"corr_argmax {what}: index {gi} vs {ri}, scores {a} {b}")
+    if math.isfinite(rv):
+        check(abs(gv - rv) <= 1e-5 * abs(rv) + 1e-6,
+              f"corr_argmax {what}: value {gv} vs {rv}")
+    else:
+        check(gv == rv, f"corr_argmax {what}: value {gv} vs {rv}")
+    return abs(gv - rv) if math.isfinite(rv) else 0.0
+
+
+def hold_corr_argmax(torch, card: dict, c, w, base, mask, absolute,
+                     what) -> dict:
+    """``corr_argmax`` against its plain version (``check_argmax``), timed
+    beside it; returns the record."""
+    from repro_torch.kernels import corr as corr_k
+    from repro_torch.kernels import ref
+    err = check_argmax(torch, c, w, base, mask, absolute, what)
+    n, p = c.shape
+    ms = device_ms(torch, lambda: corr_k.corr_argmax(
+        c, w, base, mask, absolute=absolute))
+    plain = device_ms(torch, lambda: ref.corr_argmax_ref(
+        c, w, base, mask, absolute=absolute))
+    # What the mask needs: every mask byte, the row and base of each live
+    # row, the vector, and (idx, val).
+    live = int(mask.sum())
+    b, by = bound_of(card, 4 * p * live + 4 * p + 4 * live + n + 8,
+                     2 * p * live)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=None, shape=[n, p])
+
+
 def phase_device(torch) -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -421,16 +547,10 @@ def phase_kernels(torch, np, card: dict) -> dict:
     from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
-    bw, flops = peaks(card["name"])
     rng = np.random.default_rng(0)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    def bound(nbytes, nflops):
-        by_bytes, by_ops = nbytes / bw * 1e3, nflops / flops * 1e3
-        return (max(by_bytes, by_ops),
-                "bytes" if by_bytes >= by_ops else "operations")
 
     records = {name: {} for name in KERNEL_SOURCES}
 
@@ -452,7 +572,8 @@ def phase_kernels(torch, np, card: dict) -> dict:
                             (STREAM_BUF, 65, "float32",
                              ("stream-pooled", "partitioned-stream")),
                             # the certified merges' unions
-                            (K, 10, "float32", ("gradmatch-partitioned",)),
+                            (PART_TRAIN_K, 10, "float32",
+                             ("gradmatch-partitioned",)),
                             (PART_K, 65, "float32",
                              ("partitioned-hash", "partitioned-contiguous")),
                             (*WIDE, "float32", ()),
@@ -461,44 +582,11 @@ def phase_kernels(torch, np, card: dict) -> dict:
         g = t(rng.standard_normal((n, d)).astype(np.float32)).to(
             getattr(torch, dt))
         r = t(rng.standard_normal(d).astype(np.float32))
-        got, want = corr_k.corr(g, r), ref.corr_ref(g, r)
-        err = float((got - want).abs().max())
-        scale = float(torch.sqrt((g.float() ** 2).sum(1).max()
-                                 * (r ** 2).sum()))
-        check(torch.allclose(got, want, rtol=1e-5,
-                             atol=1e-6 * max(scale, 1.0)),
-              f"corr kernel disagrees at ({n}, {d}) {dt}: max err {err}")
-        ms = device_ms(torch, lambda: corr_k.corr(g, r))
-        plain = device_ms(torch, lambda: ref.corr_ref(g, r))
-        lib_ms = device_ms(torch, lambda: torch.mv(g, r.to(g.dtype)))
-        b, by = bound(n * d * g.element_size() + 4 * d + 4 * n, 2 * n * d)
-        emit("kernels", kernel="corr", shape=[n, d], dtype=dt,
-             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
-             bound_ms=b)
+        rec = hold_corr(torch, card, g, r)
         for path in paths:
-            records["corr"][path] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=lib_ms, shape=[n, d])
+            records["corr"][path] = dict(rec)
 
     # -- corr_argmax: narrow (G, -r, 0) and wide (C, w, c0), both abs ------
-    def argmax_case(c, w, base, mask, absolute, what):
-        gi, gv = corr_k.corr_argmax(c, w, base, mask, absolute=absolute)
-        ri, rv = ref.corr_argmax_ref(c, w, base, mask, absolute=absolute)
-        gi, ri, gv, rv = int(gi), int(ri), float(gv), float(rv)
-        if gi != ri:
-            # Only a true near-tie under another summation order may differ.
-            s = base - c.float() @ w
-            s = s.abs() if absolute else s
-            a, b = float(s[gi]), float(s[ri])
-            check(bool(mask[gi]) and abs(a - b) <= 1e-6 * abs(b),
-                  f"corr_argmax {what}: index {gi} vs {ri}, scores {a} {b}")
-        if np.isfinite(rv):
-            check(abs(gv - rv) <= 1e-5 * abs(rv) + 1e-6,
-                  f"corr_argmax {what}: value {gv} vs {rv}")
-        else:
-            check(gv == rv, f"corr_argmax {what}: value {gv} vs {rv}")
-        return abs(gv - rv) if np.isfinite(rv) else 0.0
-
     labels = t(rng.integers(0, 10, ROWS))
     cases = []
     g = t(rng.standard_normal((ROWS, 65)).astype(np.float32))
@@ -541,7 +629,7 @@ def phase_kernels(torch, np, card: dict) -> dict:
     # partitions' union of K bias-proxy rows, the P = 4 unions of PART_K
     # per-gradient rows
     mrng = np.random.default_rng(5)
-    for n, d, paths in ((K, 10, ("gradmatch-partitioned",)),
+    for n, d, paths in ((PART_TRAIN_K, 10, ("gradmatch-partitioned",)),
                         (PART_K, 65, ("partitioned-hash",
                                       "partitioned-contiguous",
                                       "partitioned-stream"))):
@@ -552,7 +640,8 @@ def phase_kernels(torch, np, card: dict) -> dict:
                       False, paths))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for what, c, wv, base, mask, absolute, paths in cases:
-        err = argmax_case(c, wv, base, mask, absolute, what)
+        rec = hold_corr_argmax(torch, card, c, wv, base, mask, absolute,
+                               what)
         n, p = c.shape
         # Each route the plan can give the shape, against the plan's bit for
         # bit, and timed.
@@ -576,22 +665,11 @@ def phase_kernels(torch, np, card: dict) -> dict:
             c, wv, base, mask, absolute=absolute))
         check(ops == 1, f"corr_argmax {what}: {ops} device operations a "
               "call")
-        ms = device_ms(torch, lambda: corr_k.corr_argmax(
-            c, wv, base, mask, absolute=absolute))
-        plain = device_ms(torch, lambda: ref.corr_argmax_ref(
-            c, wv, base, mask, absolute=absolute))
-        # What the mask needs: every mask byte, the row and base of each
-        # live row, the vector, and (idx, val).
-        live = int(mask.sum())
-        b, by = bound(4 * p * live + 4 * p + 4 * live + n + 8, 2 * p * live)
-        emit("kernels", kernel="corr_argmax", case=what, shape=[n, p],
-             absolute=absolute, max_abs_err=err, ms=ms, plain_ms=plain,
-             bound_ms=b, route_ms=route_ms, plan=plan, device_ops=ops)
+        rec.update(route_ms=route_ms, plan=plan, device_ops=ops)
+        emit("kernels", kernel="corr_argmax", case=what, absolute=absolute,
+             **rec)
         for path in paths:
-            records["corr_argmax"][path] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=None, shape=[n, p],
-                route_ms=route_ms, plan=plan, device_ops=ops)
+            records["corr_argmax"][path] = dict(rec)
     gi, _ = corr_k.corr_argmax(dup, -r, zeros, every, absolute=True)
     check(int(gi) % 2 == 0, "corr_argmax: a tie did not go to the lower row")
 
@@ -641,7 +719,7 @@ def phase_kernels(torch, np, card: dict) -> dict:
         copy_ms = device_ms(torch, lambda: (hgrad.copy_(h),
                                             resid.copy_(z)))
         nbytes = 2 * 4 * n * (dh + nc) + y.element_size() * n
-        b, by = bound(nbytes, n * (4 * nc + dh))
+        b, by = bound_of(card, nbytes, n * (4 * nc + dh))
         emit("kernels", kernel="lastlayer_grad", shape=[n, dh, nc],
              labels=ldt, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
              route_ms=route_ms, copy_floor_ms=copy_ms, plan=plan,
@@ -654,6 +732,56 @@ def phase_kernels(torch, np, card: dict) -> dict:
                 device_ops=ops)
     torch.cuda.synchronize()
     return records
+
+
+def close(got, want, rtol=1e-4, atol=1e-4):
+    """Max abs error and whether |got - want| <= atol + rtol |want|, in row
+    blocks (the matrices here are up to 8.1 GB)."""
+    err, ok = 0.0, True
+    for lo in range(0, got.shape[0], 4096):
+        a, b = got[lo:lo + 4096], want[lo:lo + 4096]
+        diff = (a - b).abs_()
+        err = max(err, float(diff.max()))
+        ok = ok and bool((diff <= atol + rtol * b.abs()).all())
+    return err, ok
+
+
+def check_scan(got, want, what):
+    """An FL gain scan against its plain version: gains to rtol/atol 1e-4;
+    the index equal unless the two gains are within that tolerance; an
+    all-masked input (0, -inf).  Returns the gains' max abs error."""
+    import math
+    (gg, gi, gv), (wg, wi, wv) = got, want
+    err, ok = close(gg[None], wg[None])
+    check(ok, f"{what}: gains differ, max abs err {err}")
+    gi, wi, gv, wv = int(gi), int(wi), float(gv), float(wv)
+    if not math.isfinite(wv):
+        check(gi == 0 and gv == wv, f"{what}: all-masked gave ({gi}, {gv})")
+        return err
+    if gi != wi:
+        a, b = float(wg[gi]), float(wg[wi])
+        check(abs(a - b) <= 1e-4 + 1e-4 * abs(b),
+              f"{what}: index {gi} vs {wi}, gains {a} vs {b}")
+    check(abs(gv - wv) <= 1e-4 + 1e-4 * abs(wv),
+          f"{what}: value {gv} vs {wv}")
+    return err
+
+
+def hold_fl_gain(torch, card: dict, sim, cover, mask, what) -> dict:
+    """``fl_gain_argmax`` against its plain version (``check_scan``) on a
+    resident similarity, timed beside it; returns the record."""
+    from repro_torch.kernels import fl_gain as fl_k
+    from repro_torch.kernels import ref
+    n = sim.shape[0]
+    err = check_scan(fl_k.fl_gain_argmax(sim, cover, mask),
+                     ref.fl_gain_argmax_ref(sim, cover, mask),
+                     f"fl_gain_argmax {what}")
+    ms = device_ms(torch, lambda: fl_k.fl_gain_argmax(sim, cover, mask))
+    plain = device_ms(torch, lambda: ref.fl_gain_argmax_ref(
+        sim, cover, mask), reps=10, warmup=2)
+    b, by = bound_of(card, 4 * n * n + 13 * n + 8, 3 * n * n)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=None, shape=[n, n])
 
 
 def phase_kernels_fl(torch, np, card: dict, records: dict) -> None:
@@ -673,39 +801,7 @@ def phase_kernels_fl(torch, np, card: dict, records: dict) -> None:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def bound(nbytes, nflops):
-        by_bytes, by_ops = nbytes / bw * 1e3, nflops / flops * 1e3
-        return (max(by_bytes, by_ops),
-                "bytes" if by_bytes >= by_ops else "operations")
-
-    def close(got, want, rtol=1e-4, atol=1e-4):
-        """Max abs error and whether |got - want| <= atol + rtol |want|,
-        in row blocks (the matrices here are up to 8.1 GB)."""
-        err, ok = 0.0, True
-        for lo in range(0, got.shape[0], 4096):
-            a, b = got[lo:lo + 4096], want[lo:lo + 4096]
-            diff = (a - b).abs_()
-            err = max(err, float(diff.max()))
-            ok = ok and bool((diff <= atol + rtol * b.abs()).all())
-        return err, ok
-
-    def check_scan(got, want, what):
-        """Gains to rtol/atol 1e-4; the index equal unless the two gains
-        are within that tolerance; an all-masked input (0, -inf)."""
-        (gg, gi, gv), (wg, wi, wv) = got, want
-        err, ok = close(gg[None], wg[None])
-        check(ok, f"{what}: gains differ, max abs err {err}")
-        gi, wi, gv, wv = int(gi), int(wi), float(gv), float(wv)
-        if not np.isfinite(wv):
-            check(gi == 0 and gv == wv, f"{what}: all-masked gave "
-                  f"({gi}, {gv})")
-            return err
-        if gi != wi:
-            a, b = float(wg[gi]), float(wg[wi])
-            check(abs(a - b) <= 1e-4 + 1e-4 * abs(b),
-                  f"{what}: index {gi} vs {wi}, gains {a} vs {b}")
-        check(abs(gv - wv) <= 1e-4 + 1e-4 * abs(wv),
-              f"{what}: value {gv} vs {wv}")
-        return err
+        return bound_of(card, nbytes, nflops)
 
     def record(err, ms, plain, lib, b, by, shape):
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
@@ -990,6 +1086,121 @@ def partition_arenas(torch) -> list:
     return out
 
 
+def hold_bound_max(torch, np, card: dict, rng, n: int, d: int,
+                   live, count_ops=True) -> dict:
+    """``bound_max`` against its plain version on an (n, d) bf16 arena with
+    the mask ``live()`` (rows and residual on a 1/8 grid; see
+    ``phase_kernels_stream``), on each route against the other bit for
+    bit, one device operation a call (``count_ops``) and the workspace
+    zero after it, timed; returns the record."""
+    from repro_torch.kernels import corr as corr_k
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def both_routes(*args, absolute=False):
+        """The default call, checked equal to each route's bit for bit."""
+        got = corr_k.bound_max(*args, absolute=absolute)
+        for route in ("tiles", "rows"):
+            other = corr_k.bound_max(*args, absolute=absolute, route=route)
+            check(all(torch.equal(a, b) for a, b in zip(got, other)),
+                  f"bound_max {tuple(args[0].shape)}: the {route} route "
+                  f"gave {other}, the plan's {got}")
+        return got
+
+    rows = t(np.round(rng.standard_normal((n, d)) * 8) / 8).to(
+        torch.bfloat16)
+    r = t((np.round(rng.standard_normal(d) * 8) / 8).astype(np.float32))
+    norms = t(np.sqrt((np.asarray(rows.float().cpu()) ** 2).sum(1))
+              .astype(np.float32))
+    errn = t((np.abs(rng.standard_normal(n)) / 700).astype(np.float32))
+    acc = d * 2.0 ** -23 * 1.25
+    mask = live()
+    err = 0.0
+    for absolute in (False, True):
+        s_ = rows.float() @ r
+        s_ = s_.abs() if absolute else s_
+        u = s_ + (errn + acc * norms) * torch.sqrt((r * r).sum())
+        um = u[mask]
+        tol = 1e-6 * float(um.abs().max())
+        srt = torch.sort(um).values
+        gaps = srt[1:] - srt[:-1]
+        wide = torch.nonzero(gaps > 4 * tol)[:, 0]
+        mid_at = int(wide[len(wide) // 2])
+        mid = float((srt[mid_at] + srt[mid_at + 1]) / 2)
+        for thresh in (float("-inf"), float("inf"), mid):
+            th = torch.full((), thresh, device=dev)
+            gv, gi, gc = both_routes(rows, norms, errn, r, acc, th, mask,
+                                     absolute=absolute)
+            wv, wi, wc = ref.bound_max_ref(rows, norms, errn, r, acc, th,
+                                           mask, absolute=absolute)
+            gv, gi, gc = float(gv), int(gi), int(gc)
+            wv, wi, wc = float(wv), int(wi), int(wc)
+            what = f"bound_max ({n}, {d}) abs={absolute} thresh={thresh}"
+            check(abs(gv - wv) <= tol, f"{what}: value {gv} vs {wv}")
+            if gi != wi:
+                check(bool(mask[gi]) and abs(float(u[gi]) - float(u[wi]))
+                      <= tol, f"{what}: index {gi} vs {wi}")
+            check(gc == wc, f"{what}: count {gc} vs {wc}")
+            err = max(err, abs(gv - wv))
+        check(0 < wc < int(mask.sum()), f"bound_max ({n}, {d}): the "
+              f"middle threshold counts {wc} rows")
+    none = torch.zeros_like(mask)
+    got = both_routes(rows, norms, errn, r, acc, 0.0, none)
+    check((float(got[0]), int(got[1]), int(got[2]))
+          == (float("-inf"), 0, 0), f"bound_max all masked gave {got}")
+    dup = rows.clone()
+    dup[1::2] = dup[::2]
+    dn, de = norms.clone(), errn.clone()
+    dn[1::2], de[1::2] = dn[::2], de[::2]
+    every = torch.ones_like(mask)
+    gi = int(both_routes(dup, dn, de, r, acc, 0.0, every)[1])
+    check(gi % 2 == 0, f"bound_max: a tie went to row {gi}")
+    th = torch.full((), mid, device=dev)
+    ws_key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+
+    def call(route=None):
+        return corr_k.bound_max(rows, norms, errn, r, acc, th, mask,
+                                absolute=True, route=route)
+
+    ops = None
+    if count_ops:
+        ops = device_ops(torch, call)
+        check(ops == 1, f"bound_max ({n}, {d}): {ops} device operations "
+              "a call")
+    call()
+    torch.cuda.synchronize()
+    check(int(corr_k._bound_workspaces[ws_key].abs().sum()) == 0,
+          f"bound_max ({n}, {d}): the workspace is not zero after a call")
+    plan = asdict(corr_k.bound_max_plan(n, d, 2, rows.data_ptr(),
+                                        mask.data_ptr(), sms))
+    route_ms = {route: device_ms(torch, lambda: call(route))
+                for route in ("tiles", "rows")}
+    ms = device_ms(torch, call)
+    plain = device_ms(torch, lambda: ref.bound_max_ref(
+        rows, norms, errn, r, acc, th, mask, absolute=True))
+    # What this mask needs: every row's mask byte; the bf16 row, norms
+    # and errn of the masked-in rows only (the kernel returns on a
+    # masked-out row before it reads them); the residual, the threshold
+    # and the three outputs.  Operations: ||r|| once, then per masked-in
+    # row the dot and ~6 for the sidecar term, the compare and the fold.
+    m_in = int(mask.sum())
+    nbytes = n + (2 * d + 8) * m_in + 4 * d + 4 + 12
+    nops = 2 * d + (2 * d + 6) * m_in
+    b, by = bound_of(card, nbytes, nops)
+    emit("kernels", kernel="bound_max", shape=[n, d], dtype="bfloat16",
+         masked_in=m_in, max_abs_err=err, tolerance=tol,
+         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+         route_ms=route_ms, plan=plan, device_ops=ops)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=None, shape=[n, d],
+                route_ms=route_ms, plan=plan, device_ops=ops)
+
+
 def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
     """``bound_max`` against its plain version on the card at the two
     arenas of the streaming paths and the four of the streaming
@@ -1005,26 +1216,11 @@ def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
     of the sidecar term: the value is held to 1e-6 of max |u| (the stated
     tolerance), the index and the count exactly, the threshold being the
     middle of a gap wider than that tolerance."""
-    from repro_torch.kernels import corr as corr_k
-    from repro_torch.kernels import ref
-
     dev = torch.device("cuda")
-    bw, flops = peaks(card["name"])
     rng = np.random.default_rng(2)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    def both_routes(*args, absolute=False):
-        """The default call, checked equal to each route's bit for bit."""
-        got = corr_k.bound_max(*args, absolute=absolute)
-        for route in ("tiles", "rows"):
-            other = corr_k.bound_max(*args, absolute=absolute, route=route)
-            check(all(torch.equal(a, b) for a, b in zip(got, other)),
-                  f"bound_max {tuple(args[0].shape)}: the {route} route "
-                  f"gave {other}, the plan's {got}")
-        return got
 
     def pool_arena(d, chunk):
         """The streaming paths' arena over the main path's rows, and its
@@ -1052,98 +1248,150 @@ def phase_kernels_stream(torch, np, card: dict, records: dict) -> None:
                for ok in partition_arenas(torch)]
     by_path = {}
     for d, n, live, path in arenas:
-        rows = t(np.round(rng.standard_normal((n, d)) * 8) / 8).to(
-            torch.bfloat16)
-        r = t((np.round(rng.standard_normal(d) * 8) / 8).astype(np.float32))
-        norms = t(np.sqrt((np.asarray(rows.float().cpu()) ** 2).sum(1))
-                  .astype(np.float32))
-        errn = t((np.abs(rng.standard_normal(n)) / 700).astype(np.float32))
-        acc = d * 2.0 ** -23 * 1.25
-        mask = live()
-        err = 0.0
-        for absolute in (False, True):
-            s_ = rows.float() @ r
-            s_ = s_.abs() if absolute else s_
-            u = s_ + (errn + acc * norms) * torch.sqrt((r * r).sum())
-            um = u[mask]
-            tol = 1e-6 * float(um.abs().max())
-            srt = torch.sort(um).values
-            gaps = srt[1:] - srt[:-1]
-            wide = torch.nonzero(gaps > 4 * tol)[:, 0]
-            mid_at = int(wide[len(wide) // 2])
-            mid = float((srt[mid_at] + srt[mid_at + 1]) / 2)
-            for thresh in (float("-inf"), float("inf"), mid):
-                th = torch.full((), thresh, device=dev)
-                gv, gi, gc = both_routes(rows, norms, errn, r, acc, th, mask,
-                                         absolute=absolute)
-                wv, wi, wc = ref.bound_max_ref(rows, norms, errn, r, acc, th,
-                                               mask, absolute=absolute)
-                gv, gi, gc = float(gv), int(gi), int(gc)
-                wv, wi, wc = float(wv), int(wi), int(wc)
-                what = f"bound_max ({n}, {d}) abs={absolute} thresh={thresh}"
-                check(abs(gv - wv) <= tol, f"{what}: value {gv} vs {wv}")
-                if gi != wi:
-                    check(bool(mask[gi]) and abs(float(u[gi]) - float(u[wi]))
-                          <= tol, f"{what}: index {gi} vs {wi}")
-                check(gc == wc, f"{what}: count {gc} vs {wc}")
-                err = max(err, abs(gv - wv))
-            check(0 < wc < int(mask.sum()), f"bound_max ({n}, {d}): the "
-                  f"middle threshold counts {wc} rows")
-        none = torch.zeros_like(mask)
-        got = both_routes(rows, norms, errn, r, acc, 0.0, none)
-        check((float(got[0]), int(got[1]), int(got[2]))
-              == (float("-inf"), 0, 0), f"bound_max all masked gave {got}")
-        dup = rows.clone()
-        dup[1::2] = dup[::2]
-        dn, de = norms.clone(), errn.clone()
-        dn[1::2], de[1::2] = dn[::2], de[::2]
-        every = torch.ones_like(mask)
-        gi = int(both_routes(dup, dn, de, r, acc, 0.0, every)[1])
-        check(gi % 2 == 0, f"bound_max: a tie went to row {gi}")
-        th = torch.full((), mid, device=dev)
-        ws_key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-
-        def call(route=None):
-            return corr_k.bound_max(rows, norms, errn, r, acc, th, mask,
-                                    absolute=True, route=route)
-
-        ops = device_ops(torch, call)
-        check(ops == 1, f"bound_max ({n}, {d}): {ops} device operations a "
-              "call")
-        torch.cuda.synchronize()
-        check(int(corr_k._bound_workspaces[ws_key].abs().sum()) == 0,
-              f"bound_max ({n}, {d}): the workspace is not zero after a call")
-        plan = asdict(corr_k.bound_max_plan(n, d, 2, rows.data_ptr(),
-                                            mask.data_ptr(), sms))
-        route_ms = {route: device_ms(torch, lambda: call(route))
-                    for route in ("tiles", "rows")}
-        ms = device_ms(torch, call)
-        plain = device_ms(torch, lambda: ref.bound_max_ref(
-            rows, norms, errn, r, acc, th, mask, absolute=True))
-        # What this mask needs: every row's mask byte; the bf16 row, norms
-        # and errn of the masked-in rows only (the kernel returns on a
-        # masked-out row before it reads them); the residual, the threshold
-        # and the three outputs.  Operations: ||r|| once, then per masked-in
-        # row the dot and ~6 for the sidecar term, the compare and the fold.
-        m_in = int(mask.sum())
-        nbytes = n + (2 * d + 8) * m_in + 4 * d + 4 + 12
-        nops = 2 * d + (2 * d + 6) * m_in
-        by_bytes, by_ops = nbytes / bw * 1e3, nops / flops * 1e3
-        b, by = (max(by_bytes, by_ops),
-                 "bytes" if by_bytes >= by_ops else "operations")
-        emit("kernels", kernel="bound_max", shape=[n, d], dtype="bfloat16",
-             masked_in=m_in, max_abs_err=err, tolerance=tol,
-             ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-             route_ms=route_ms, plan=plan, device_ops=ops)
-        by_path.setdefault(path, []).append(dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-            library_ms=None, shape=[n, d], route_ms=route_ms, plan=plan,
-            device_ops=ops))
+        by_path.setdefault(path, []).append(hold_bound_max(
+            torch, np, card, rng, n, d, live))
     # a path that scans several arenas (one a streaming partition) has a
     # record for each
     for path, recs in by_path.items():
         records["bound_max"][path] = recs[0] if len(recs) == 1 else recs
     torch.cuda.synchronize()
+
+
+def batched_plan_of(torch, mat, b: int, argmax: bool) -> dict:
+    """The launch plan the batched wrappers take for ``mat`` and B
+    problems."""
+    from repro_torch.kernels import corr as corr_k
+    n, d = mat.shape[-2:]
+    return asdict(corr_k.batched_plan(
+        n, d, b, argmax=argmax, per_problem=mat.dim() == 3,
+        vec=mat.data_ptr() % 16 == 0 and d % 4 == 0,
+        sms=torch.cuda.get_device_properties(mat.device)
+        .multi_processor_count))
+
+
+def hold_corr_batched(torch, card: dict, g, v, count_ops=True) -> dict:
+    """``corr_batched`` against B single ``corr`` launches (the same bits)
+    and its plain version (rtol 1e-5, atol 1e-6 of the largest |g||v|), one
+    device operation a call (``count_ops``), timed beside the plain
+    version, ``torch.mm`` and the B single launches; returns the record."""
+    from repro_torch.kernels import corr as corr_k
+    from repro_torch.kernels import ref
+    (n, d), b = g.shape, v.shape[0]
+    got, want = corr_k.corr_batched(g, v), ref.corr_batched_ref(g, v)
+    single = torch.stack([corr_k.corr(g, v[j]) for j in range(b)], 1)
+    check(torch.equal(got, single), f"corr_batched ({n}, {d}) B={b}: "
+          "not the bits of B single corr launches")
+    err = float((got - want).abs().max())
+    scale = float(torch.sqrt((g ** 2).sum(1).max() * (v ** 2).sum(1).max()))
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-6 * max(scale, 1.0)),
+          f"corr_batched ({n}, {d}) B={b}: max err {err}")
+    ms = device_ms(torch, lambda: corr_k.corr_batched(g, v))
+    plain = device_ms(torch, lambda: ref.corr_batched_ref(g, v))
+    lib = device_ms(torch, lambda: torch.mm(g, v.T))
+    one = device_ms(torch, lambda: [corr_k.corr(g, v[j]) for j in range(b)])
+    ops = None
+    if count_ops:
+        ops = device_ops(torch, lambda: corr_k.corr_batched(g, v))
+        check(ops == 1, f"corr_batched ({n}, {d}) B={b}: {ops} device "
+              "operations a call")
+    plan = batched_plan_of(torch, g, b, False)
+    bd, by = bound_of(card, 4 * (n * d + b * d + n * b), 2 * n * d * b)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bd,
+               bound_by=by, library_ms=lib, shape=[n, d, b],
+               single_launches_ms=one, plan=plan, device_ops=ops)
+    emit("kernels", kernel="corr_batched", **rec)
+    return rec
+
+
+def check_argmax_batched(torch, mat, w, base, mask, absolute, what):
+    """``corr_argmax_batched`` against B single ``corr_argmax`` launches on
+    the warp route (the same bits) and its plain version (the index equal
+    unless the two scores are within 1e-6 of each other, the value to rtol
+    1e-5); returns (the values' max error, the indices)."""
+    import math
+
+    from repro_torch.kernels import corr as corr_k
+    from repro_torch.kernels import ref
+    gi, gv = corr_k.corr_argmax_batched(mat, w, base, mask,
+                                        absolute=absolute)
+    ri, rv = ref.corr_argmax_batched_ref(mat, w, base, mask,
+                                         absolute=absolute)
+    b = w.shape[0]
+    single = [corr_k.corr_argmax(mat if mat.dim() == 2 else mat[j], w[j],
+                                 base[:, j].contiguous(),
+                                 mask[:, j].contiguous(), absolute=absolute,
+                                 route="warps")
+              for j in range(b)]
+    check(torch.equal(gi, torch.stack([x[0] for x in single]))
+          and torch.equal(gv, torch.stack([x[1] for x in single])),
+          f"corr_argmax_batched {what}: not the bits of B single "
+          "corr_argmax launches")
+    err = 0.0
+    for j in range(b):
+        a, r_ = int(gi[j]), int(ri[j])
+        if a != r_:
+            m = mat if mat.dim() == 2 else mat[j]
+            s_ = base[:, j] - m @ w[j]
+            s_ = s_.abs() if absolute else s_
+            x, y = float(s_[a]), float(s_[r_])
+            check(bool(mask[a, j]) and abs(x - y) <= 1e-6 * abs(y),
+                  f"corr_argmax_batched {what} problem {j}: index {a} "
+                  f"vs {r_}, scores {x} {y}")
+        x, y = float(gv[j]), float(rv[j])
+        if math.isfinite(y):
+            check(abs(x - y) <= 1e-5 * abs(y) + 1e-6,
+                  f"corr_argmax_batched {what} problem {j}: value {x} "
+                  f"vs {y}")
+            err = max(err, abs(x - y))
+        else:
+            check(x == y and a == 0, f"corr_argmax_batched {what} "
+                  f"problem {j}: all masked gave ({a}, {x})")
+    return err, gi
+
+
+def hold_corr_argmax_batched(torch, card: dict, mat, w, base, mask,
+                             absolute, what, count_ops=True
+                             ) -> tuple[dict, object]:
+    """``check_argmax_batched``, one device operation a call
+    (``count_ops``), timed beside the plain version and the B single
+    launches; returns (the record, the indices)."""
+    from repro_torch.kernels import corr as corr_k
+    from repro_torch.kernels import ref
+    err, gi = check_argmax_batched(torch, mat, w, base, mask, absolute, what)
+    b, (nn, p) = w.shape[0], mat.shape[-2:]
+    ms = device_ms(torch, lambda: corr_k.corr_argmax_batched(
+        mat, w, base, mask, absolute=absolute))
+    plain = device_ms(torch, lambda: ref.corr_argmax_batched_ref(
+        mat, w, base, mask, absolute=absolute))
+    cols = [(base[:, j].contiguous(), mask[:, j].contiguous())
+            for j in range(b)]
+    one = device_ms(torch, lambda: [corr_k.corr_argmax(
+        mat if mat.dim() == 2 else mat[j], w[j], *cols[j],
+        absolute=absolute, route="warps") for j in range(b)])
+    ops = None
+    if count_ops:
+        ops = device_ops(torch, lambda: corr_k.corr_argmax_batched(
+            mat, w, base, mask, absolute=absolute))
+        check(ops == 1, f"corr_argmax_batched {what}: {ops} device "
+              "operations a call")
+    plan = batched_plan_of(torch, mat, b, True)
+    # What this case's masks need: the mask, base and a dot product for
+    # live pairs only, the rows of mat that some live pair reads (a shared
+    # pool's row once), the vectors, and (idx, val).
+    live = int(mask.sum())
+    rows_read = int(mask.any(1).sum()) if mat.dim() == 2 else live
+    bd, by = bound_of(card, 4 * p * rows_read + 4 * b * p + nn * b
+                      + 4 * live + 8 * b, 2 * p * live)
+    emit("kernels", kernel="corr_argmax_batched", case=what,
+         shape=list(mat.shape) + [b], absolute=absolute, max_abs_err=err,
+         ms=ms, plain_ms=plain, single_launches_ms=one, bound_ms=bd,
+         bound_by=by, plan=plan, device_ops=ops)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bd,
+               bound_by=by, library_ms=None, shape=[nn, p, b],
+               single_launches_ms=one, plan=plan, device_ops=ops)
+    if mat.dim() == 3:
+        rec["per_problem"] = True
+    return rec, gi
 
 
 def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
@@ -1165,33 +1413,12 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
     the plain version scores to rtol 1e-5 (and an absolute 1e-6 of the
     largest |g||v| for ``corr_batched``), the index equal unless the two
     scores are within 1e-6 of each other."""
-    from repro_torch.kernels import corr as corr_k
-    from repro_torch.kernels import ref
-
     dev = torch.device("cuda")
-    bw, flops = peaks(card["name"])
+    bw, _ = peaks(card["name"])
     rng = np.random.default_rng(3)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    def bound(nbytes, nflops):
-        by_bytes, by_ops = nbytes / bw * 1e3, nflops / flops * 1e3
-        return (max(by_bytes, by_ops),
-                "bytes" if by_bytes >= by_ops else "operations")
-
-    def record(err, ms, plain, lib, b, by, shape, single, plan, ops):
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                    bound_by=by, library_ms=lib, shape=shape,
-                    single_launches_ms=single, plan=plan, device_ops=ops)
-
-    def plan_of(mat, b, argmax):
-        """The launch plan the wrapper takes for ``mat`` and B problems."""
-        n, d = mat.shape[-2:]
-        return asdict(corr_k.batched_plan(
-            n, d, b, argmax=argmax, per_problem=mat.dim() == 3,
-            vec=mat.data_ptr() % 16 == 0 and d % 4 == 0,
-            sms=torch.cuda.get_device_properties(dev).multi_processor_count))
 
     # The pool the OMP rounds re-read stays in the 50 MB L2 between calls:
     # its read rate there, by one torch.sum over it, beside a sum of one
@@ -1211,6 +1438,8 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
     #    (B = 32), the wide regime's new columns (B = 4), ragged, B > 32 --
     for n, d, b, paths in ((ROWS, 65, CLASSES, ("gradmatch",)),
                            (ROWS, 65, SERVE_B, ("batched",)),
+                           # the serve phase's ten requests, padded
+                           (ROWS, 65, SERVE_BUCKET, ("serve",)),
                            (*WIDE, 4, ()), (1001, 63, 1, ()),
                            (1001, 63, 3, ()), (4097, 12, 40, ()),
                            # the partition solves' c0
@@ -1219,77 +1448,16 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
                                                "partitioned-contiguous"))):
         g = t(rng.standard_normal((n, d)).astype(np.float32))
         v = t(rng.standard_normal((b, d)).astype(np.float32))
-        got, want = corr_k.corr_batched(g, v), ref.corr_batched_ref(g, v)
-        single = torch.stack([corr_k.corr(g, v[j]) for j in range(b)], 1)
-        check(torch.equal(got, single), f"corr_batched ({n}, {d}) B={b}: "
-              "not the bits of B single corr launches")
-        err = float((got - want).abs().max())
-        scale = float(torch.sqrt((g ** 2).sum(1).max()
-                                 * (v ** 2).sum(1).max()))
-        check(torch.allclose(got, want, rtol=1e-5,
-                             atol=1e-6 * max(scale, 1.0)),
-              f"corr_batched ({n}, {d}) B={b}: max err {err}")
-        ms = device_ms(torch, lambda: corr_k.corr_batched(g, v))
-        plain = device_ms(torch, lambda: ref.corr_batched_ref(g, v))
-        lib = device_ms(torch, lambda: torch.mm(g, v.T))
-        one = device_ms(torch, lambda: [corr_k.corr(g, v[j])
-                                        for j in range(b)])
-        ops = device_ops(torch, lambda: corr_k.corr_batched(g, v))
-        check(ops == 1, f"corr_batched ({n}, {d}) B={b}: {ops} device "
-              "operations a call")
-        plan = plan_of(g, b, False)
-        bd, by = bound(4 * (n * d + b * d + n * b), 2 * n * d * b)
-        emit("kernels", kernel="corr_batched", shape=[n, d, b],
-             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-             single_launches_ms=one, bound_ms=bd, bound_by=by, plan=plan,
-             device_ops=ops)
+        rec = hold_corr_batched(torch, card, g, v)
         for path in paths:
-            records["corr_batched"][path] = record(
-                err, ms, plain, lib, bd, by, [n, d, b], one, plan, ops)
+            records["corr_batched"][path] = dict(rec)
 
     # -- corr_argmax_batched ------------------------------------------------
-    def argmax_case(mat, w, base, mask, absolute, what):
-        gi, gv = corr_k.corr_argmax_batched(mat, w, base, mask,
-                                            absolute=absolute)
-        ri, rv = ref.corr_argmax_batched_ref(mat, w, base, mask,
-                                             absolute=absolute)
-        b = w.shape[0]
-        single = [corr_k.corr_argmax(mat if mat.dim() == 2 else mat[j],
-                                     w[j], base[:, j].contiguous(),
-                                     mask[:, j].contiguous(),
-                                     absolute=absolute, route="warps")
-                  for j in range(b)]
-        check(torch.equal(gi, torch.stack([x[0] for x in single]))
-              and torch.equal(gv, torch.stack([x[1] for x in single])),
-              f"corr_argmax_batched {what}: not the bits of B single "
-              "corr_argmax launches")
-        err = 0.0
-        for j in range(b):
-            a, r_ = int(gi[j]), int(ri[j])
-            if a != r_:
-                m = mat if mat.dim() == 2 else mat[j]
-                s_ = base[:, j] - m @ w[j]
-                s_ = s_.abs() if absolute else s_
-                x, y = float(s_[a]), float(s_[r_])
-                check(bool(mask[a, j]) and abs(x - y) <= 1e-6 * abs(y),
-                      f"corr_argmax_batched {what} problem {j}: index {a} "
-                      f"vs {r_}, scores {x} {y}")
-            x, y = float(gv[j]), float(rv[j])
-            if np.isfinite(y):
-                check(abs(x - y) <= 1e-5 * abs(y) + 1e-6,
-                      f"corr_argmax_batched {what} problem {j}: value {x} "
-                      f"vs {y}")
-                err = max(err, abs(x - y))
-            else:
-                check(x == y and a == 0, f"corr_argmax_batched {what} "
-                      f"problem {j}: all masked gave ({a}, {x})")
-        return err, gi
-
     n = ROWS
     labels = rng.integers(0, CLASSES, n)
     g = t(rng.standard_normal((n, 65)).astype(np.float32))
     zeros = {b: torch.zeros((n, b), device=dev)
-             for b in (CLASSES, SERVE_B, PART_P)}
+             for b in (CLASSES, SERVE_B, PART_P, SERVE_BUCKET)}
     # per-class masks: row i is a candidate of its class only, a tenth taken
     onehot = np.eye(CLASSES, dtype=bool)[labels] & (rng.random((n, 1)) > 0.1)
     cases = [  # (what, mat, w, base, mask, absolute, path)
@@ -1301,6 +1469,10 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
         ("batched", g, t(-rng.standard_normal((SERVE_B, 65)).astype(
             np.float32)), zeros[SERVE_B], t(rng.random((n, SERVE_B)) < 0.5),
          False, "batched"),
+        # the serve phase's group: no request masks, a tenth taken
+        ("serve, padded to 16", g, t(-rng.standard_normal(
+            (SERVE_BUCKET, 65)).astype(np.float32)), zeros[SERVE_BUCKET],
+         t(rng.random((n, SERVE_BUCKET)) > 0.1), False, "serve"),
     ]
     cc = t(rng.standard_normal((4, *WIDE)).astype(np.float32))
     cases.append(("wide per-problem", cc,
@@ -1358,7 +1530,8 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
                         & (rng.random((n, 1)) > 0.1)), False,
                       f"partitioned-{kind}"))
     for what, mat, w, base, mask, absolute, path in cases:
-        err, gi = argmax_case(mat, w, base, mask, absolute, what)
+        rec, gi = hold_corr_argmax_batched(torch, card, mat, w, base, mask,
+                                           absolute, what)
         if what.startswith("ties"):
             live = [j for j in range(CLASSES) if j != 3]
             check(all(int(gi[j]) % 2 == 0 for j in live),
@@ -1366,36 +1539,8 @@ def phase_kernels_batched(torch, np, card: dict, records: dict) -> None:
         if what.startswith("live -inf"):
             check(gi.tolist() == [0, 0, gi.tolist()[2], 9],
                   f"corr_argmax_batched: -inf rule picked {gi.tolist()}")
-        b, (nn, p) = w.shape[0], mat.shape[-2:]
-        ms = device_ms(torch, lambda: corr_k.corr_argmax_batched(
-            mat, w, base, mask, absolute=absolute))
-        plain = device_ms(torch, lambda: ref.corr_argmax_batched_ref(
-            mat, w, base, mask, absolute=absolute))
-        cols = [(base[:, j].contiguous(), mask[:, j].contiguous())
-                for j in range(b)]
-        one = device_ms(torch, lambda: [corr_k.corr_argmax(
-            mat if mat.dim() == 2 else mat[j], w[j], *cols[j],
-            absolute=absolute, route="warps") for j in range(b)])
-        ops = device_ops(torch, lambda: corr_k.corr_argmax_batched(
-            mat, w, base, mask, absolute=absolute))
-        check(ops == 1, f"corr_argmax_batched {what}: {ops} device "
-              "operations a call")
-        plan = plan_of(mat, b, True)
-        # What this case's masks need: the mask, base and a dot product for
-        # live pairs only, the rows of mat that some live pair reads (a
-        # shared pool's row once), the vectors, and (idx, val).
-        live = int(mask.sum())
-        rows_read = int(mask.any(1).sum()) if mat.dim() == 2 else live
-        bd, by = bound(4 * p * rows_read + 4 * b * p + nn * b + 4 * live
-                       + 8 * b, 2 * p * live)
-        emit("kernels", kernel="corr_argmax_batched", case=what,
-             shape=list(mat.shape) + [b], absolute=absolute,
-             max_abs_err=err, ms=ms, plain_ms=plain,
-             single_launches_ms=one, bound_ms=bd, bound_by=by, plan=plan,
-             device_ops=ops)
         if path:
-            records["corr_argmax_batched"][path] = record(
-                err, ms, plain, None, bd, by, [nn, p, b], one, plan, ops)
+            records["corr_argmax_batched"][path] = rec
     del cc
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2472,14 +2617,16 @@ def phase_partition(torch, np, train, val) -> dict:
               f"{what}: weights differ by "
               f"{float((a.weights - b.weights).abs().max())}")
 
-    # 1. gradmatch-partitioned trained end to end at the trainer phase's
-    # settings but one selection (R = 2 over the 2 epochs: the merge's
-    # 4 500 host-bound rounds cost ~45 s a selection): bias proxies
-    # (45 000, 10), one partition a class; the selection's proxies, union
-    # and partition solve recorded
-    tcfg = TrainerConfig(strategy="gradmatch-partitioned", budget=BUDGET,
-                         epochs=2, batch_size=BATCH,
-                         hp=PaperHParams(select_every=2), eval_every=1)
+    # 1. gradmatch-partitioned trained end to end, one selection at budget
+    # PART_BUDGET (the merge's host-bound rounds cost ~8 ms each: 4 500 of
+    # them at the trainer phase's 0.1 took ~36 s a selection), over
+    # PART_EPOCHS epochs (R = PART_EPOCHS: the trainer phase's 140 SGD
+    # steps): bias proxies (45 000, 10), one partition a class; the
+    # selection's proxies, union and partition solve recorded
+    tcfg = TrainerConfig(strategy="gradmatch-partitioned", budget=PART_BUDGET,
+                         epochs=PART_EPOCHS, batch_size=BATCH,
+                         hp=PaperHParams(select_every=PART_EPOCHS),
+                         eval_every=1)
     trainer = AdaptiveTrainer(mlp(), tcfg, train, val)
     model = trainer.init_model()
     with Recorder(sel_lib, "select") as sels, \
@@ -2492,13 +2639,14 @@ def phase_partition(torch, np, train, val) -> dict:
                  "corr_argmax", "lastlayer_grad"))
     check(rep.selection_rounds == 1 and len(sels) == 1,
           "expected one selection round")
-    check(rep.subset_size == K, f"{path} kept {rep.subset_size} rows")
+    check(rep.subset_size == PART_TRAIN_K,
+          f"{path} kept {rep.subset_size} rows")
     check(np.isfinite(rep.final_acc) and rep.final_acc > 0.2,
           f"{path} final accuracy {rep.final_acc} is not above 0.2")
     per_sel = []
     for (args, kw, sel), merge in zip(sels, merges):
         proxies, labels = args[2], kw["labels"]
-        check_sel(sel, path, K)
+        check_sel(sel, path, PART_TRAIN_K)
         check(sel.stats.kind == "class" and sel.stats.num_parts == CLASSES,
               f"{path}: {sel.stats.kind} partitions")
         union = set(merge[0][1].tolist())
@@ -2567,8 +2715,9 @@ def phase_partition(torch, np, train, val) -> dict:
               <= 1e-5 * abs(float(plain.err)),
               f"{path}: err {float(sel.err)} with the kernels, "
               f"{float(plain.err)} with the plain versions")
-    emit("partition", path=path, rows=train.n, budget=BUDGET, epochs=2,
-         select_every=2, selection_rounds=rep.selection_rounds,
+    emit("partition", path=path, rows=train.n, budget=PART_BUDGET,
+         epochs=PART_EPOCHS, select_every=PART_EPOCHS,
+         selection_rounds=rep.selection_rounds,
          selection_seconds=rep.selection_seconds,
          wall_seconds=rep.wall_seconds, final_acc=rep.final_acc,
          subset_size=rep.subset_size, selections=per_sel,
@@ -2833,6 +2982,531 @@ class Timed:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+def phase_serve(torch, np, tr: dict, records: dict) -> dict:
+    """Selection serving and the artifact fast path on the card, at the
+    trainer's per-gradient proxies (45 000, 65), each path's launch counts
+    read on its own, the store in a temporary directory removed at the end.
+    Any failed check raises."""
+    import shutil
+    import tempfile
+
+    from repro_torch.artifacts import ArtifactStore, artifact_key_for
+    from repro_torch.core import craig as craig_lib
+    from repro_torch.core import glister as glister_lib
+    from repro_torch.core import omp, random_sel, streaming
+    from repro_torch.core import partition as part_lib
+    from repro_torch.core.gradmatch import _normalize
+    from repro_torch.data.loader import ChunkedPool
+    from repro_torch.kernels import ops
+    from repro_torch.launch import build_artifacts, serve_selection
+    from repro_torch.resilience import DISK_FAULT_KINDS, inject_disk_fault
+    from repro_torch.serve import SelectionService
+    from repro_torch.serve import scheduler as sched_lib
+    from repro_torch.train.steps import make_proxy_fn
+
+    t_phase = time.perf_counter()
+    counts, shapes, routes, seconds = {}, {}, {}, {}
+    absolute = {}           # corr_argmax's abs flags at each caught shape
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def catching(fn, caught):
+        """``fn`` (an ``ops`` entry whose kernel's shapes
+        ``ops.launch_shapes()`` does not keep: ``corr_argmax`` and the FL
+        scans) that also counts each launch it makes by (kernel, rows, d,
+        dtype) of its first argument."""
+        def call(*args, **kwargs):
+            before = ops.launch_counts()
+            out = fn(*args, **kwargs)
+            m = args[0]
+            for kname, c in ops.launch_counts().items():
+                if c > before[kname]:
+                    key = (kname, *m.shape[-2:],
+                           str(m.dtype).removeprefix("torch."))
+                    caught[key] = caught.get(key, 0) + c - before[kname]
+                    absolute.setdefault(key, set()).add(
+                        bool(kwargs.get("absolute", False)))
+            return out
+        return call
+
+    def measure(path, fn):
+        """Run one path with the counts set to 0 before it: its launches,
+        their shapes and routes, and its seconds."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        caught = {}
+        originals = {name: getattr(ops, name) for name in (
+            "corr_argmax", "fl_gain_argmax", "fl_gain_argmax_otf")}
+        for name, orig in originals.items():
+            setattr(ops, name, catching(orig, caught))
+        try:
+            out, seconds[path] = timed(fn)
+        finally:
+            for name, orig in originals.items():
+                setattr(ops, name, orig)
+        counts[path] = ops.launch_counts()
+        shapes[path] = {**ops.launch_shapes(), **caught}
+        routes[path] = ops.launch_routes()
+        return out
+
+    def needs(path, names):
+        for name in names:
+            check(counts[path][name] > 0,
+                  f"kernel {name} was not launched on the {path} path")
+
+    def launches(path, names):
+        return {n: counts[path][n] for n in names}
+
+    def certify(what, grads, target, got, want, solve_got, solve_want):
+        """The launchers' hook: a parting must be a tie agree() certifies."""
+        return agree(torch, grads, target, got, want, solve_got, solve_want,
+                     what)
+
+    def bits(a, b, what):
+        for x, y, name in zip(a, b, ("indices", "weights", "mask", "err")):
+            check(torch.equal(x, y), f"{what}: {name} differ")
+
+    def normalized(sol):
+        return (sol[0], _normalize(sol[1], sol[2]), sol[2], sol[3])
+
+    def serve_one(svc, pid, k, **kw):
+        t = svc.submit(pid, k, **kw)
+        if t.status == "queued":
+            svc.drain()
+        check(t.status == "done", f"serve: request {kw} k {k} failed: "
+              f"{t.error}")
+        return t
+
+    pcg, _ = make_proxy_fn(tr["model"])(tr["train"].x, tr["train"].y)
+    n, d = pcg.shape
+    y = tr["train"].y
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        # 1. artifacts: build_artifacts over the resident pool at its
+        # default k_max, its self-check (a slice bit-equal to the session,
+        # equal to omp_select's picks or a tie agree() certifies)
+        store = ArtifactStore(os.path.join(root, "store"))
+        reports = measure("serve-build", lambda: build_artifacts.build_pools(
+            store, [pcg], SERVE_K_MAX))
+        needs("serve-build", ("corr", "corr_argmax"))
+        ok, selfcheck = build_artifacts._selfcheck(
+            store, [pcg], reports, 0.5, 1e-10, True, on_parting=certify)
+        check(ok and all(r["session_bits"] for r in selfcheck),
+              f"build_artifacts self-check failed: {selfcheck}")
+        ident = reports[0]["ident"]
+
+        # the service on that store: submits at those k are served from
+        # the artifact, bit-equal to the live session.  The self-check held
+        # each slice bit-equal to a fresh live session; the hit is held
+        # bit-equal to the normalized slice, so to that session's answer.
+        svc = SelectionService(artifact_store=store)
+        pid = svc.register_pool(pcg)
+        entry = svc.registry.get(pid)
+        target = entry.target_sum
+        art = store.get(artifact_key_for(pcg, target, 0.5, 1e-10, True))
+        loads = store.loads
+        hits = []
+        for k in SERVE_KS:
+            hit, hit_s = timed(lambda: svc.submit(pid, k))
+            check(hit.status == "done" and hit.degradation == "artifact",
+                  f"serve: k {k} was not served from the artifact "
+                  f"({hit.degradation})")
+            sl = [torch.from_numpy(np.array(a)).to(pcg.device)
+                  for a in art.slice(k)]
+            bits(hit.result[:4], normalized(sl),
+                 f"artifact hit at k {k} against the live session")
+            hits.append({"k": k, "hit_ms": hit_s * 1e3,
+                         "err": float(hit.result.err)})
+        # the live path at k_max: a submit and drain on a service with no
+        # store (the same objective), and the hit's speed against it
+        live = SelectionService()
+        live_pid = live.register_pool(pcg)
+        lt, live_s = timed(lambda: serve_one(live, live_pid, SERVE_K_MAX))
+        check(lt.degradation == "certified", f"serve: live rung "
+              f"{lt.degradation}")
+        live_ms = live_s * 1e3
+        live_err = float(lt.result.err)
+        # the hit at k_max against the live answer (one batched solve of
+        # B 1): the same picks with weights and err to rtol 1e-4 / atol
+        # 1e-5, or a parting that agree() certifies as a tie
+        ones = torch.ones((1, n), dtype=torch.bool, device=pcg.device)
+        live_rec = agree(
+            torch, pcg, target, tuple(hit.result[:4]), tuple(lt.result[:4]),
+            lambda k: omp.session_result(omp.omp_session_start(pcg, target,
+                                                               k)),
+            lambda k: [x[0] for x in omp.omp_select_batched(
+                pcg, target[None], k, valid=ones)],
+            f"serve: the artifact hit at k {SERVE_K_MAX} against the live "
+            "answer")
+        same_picks = live_rec["parted_at"] is None
+        hit_ms = []
+        for _ in range(5):
+            t, s = timed(lambda: svc.submit(pid, SERVE_K_MAX))
+            check(t.degradation == "artifact", "serve: a repeat missed")
+            hit_ms.append(s * 1e3)
+        ratio = live_ms / statistics.median(hit_ms)
+        check(ratio >= SERVE_HIT_RATIO, f"serve: an artifact hit is only "
+              f"{ratio:.1f}x faster than a live submit-plus-drain")
+        check(svc.registry.art_hits == len(SERVE_KS) + 5
+              and store.loads == loads + 1,
+              "serve: artifact hits not memoized")
+
+        # each disk fault on a copy of the store: the submit falls through
+        # to the live path and gives its bits; the manifest quarantined
+        # where the reference quarantines it
+        lt = serve_one(live, live_pid, SERVE_REQ_K)
+        faults = {}
+        for kind in DISK_FAULT_KINDS:
+            where = os.path.join(root, kind)
+            shutil.copytree(store.root, where)
+            copy = ArtifactStore(where)
+            info = inject_disk_fault(copy, ident, kind, seed=0)
+            fsvc = SelectionService(artifact_store=copy)
+            t = serve_one(fsvc, fsvc.register_pool(pcg), SERVE_REQ_K)
+            check(t.degradation == "certified", f"serve: {kind} served "
+                  f"rung {t.degradation}")
+            bits(t.result[:4], lt.result[:4], f"serve under {kind}")
+            quarantined = os.path.exists(
+                os.path.join(copy.quarantine_dir, f"{ident}.json"))
+            check(quarantined == (kind != "kill-between-rename")
+                  and not os.path.exists(copy.manifest_path(ident))
+                  and fsvc.registry.art_quarantined == int(quarantined)
+                  and fsvc.registry.art_hits == 0,
+                  f"serve: {kind} quarantine {quarantined}, stats "
+                  f"{fsvc.registry.stats()}")
+            faults[kind] = {**info, "quarantined": quarantined,
+                            "rung": t.degradation}
+            del fsvc
+        emit("serve", part="artifacts", pool=[n, d], k_max=SERVE_K_MAX,
+             build_seconds=reports[0]["build_s"], selfcheck=selfcheck,
+             hits=hits, hit_ms=hit_ms, live_ms=live_ms, hit_ratio=ratio,
+             err_live=live_err, same_picks_as_live=same_picks,
+             against_live=live_rec,
+             faults=faults, launches=launches("serve-build",
+                                              ("corr", "corr_argmax")))
+        del svc
+
+        # 2. micro-batching: ten gradmatch requests with the ten class
+        # targets from two tenants make one batched solve (B 10 padded to
+        # 16); then the same group on the plain versions
+        valids = y[None, :] == torch.arange(CLASSES, device=y.device)[:, None]
+        targets = valids.to(pcg.dtype) @ pcg
+
+        def group():
+            with Recorder(sched_lib, "omp_select_batched") as calls:
+                tickets = [live.submit(live_pid, SERVE_REQ_K,
+                                       target=targets[c],
+                                       tenant=f"tenant-{c % 2}")
+                           for c in range(CLASSES)]
+                live.drain()
+            return tickets, calls
+
+        batches_before = live.scheduler.batches_run
+        tickets, calls = measure("serve-batched", group)
+        needs("serve-batched", BATCHED)
+        check(len(calls) == 1 and tuple(calls[0][0][1].shape)
+              == (SERVE_BUCKET, d) and live.scheduler.batches_run
+              == batches_before + 1, "serve: the ten requests did not make "
+              f"one batched solve of {SERVE_BUCKET}")
+        ops.set_backend("ref")
+        try:
+            plain_tickets, plain_calls = group()
+        finally:
+            ops.set_backend(None)
+
+        def solved(calls):
+            """The group's padded targets, its raw solution, and each
+            request's row in it (the fair head leads the group)."""
+            padded = calls[0][0][1]
+            return padded, calls[0][2], [
+                next(r for r in range(CLASSES)
+                     if torch.equal(padded[r], targets[c]))
+                for c in range(CLASSES)]
+
+        def batched_at(padded, t, mode=None):
+            ops.set_backend(mode)
+            try:
+                return omp.omp_select_batched(pcg, padded, t)
+            finally:
+                ops.set_backend(None)
+
+        padded, raw, at = solved(calls)
+        plain_padded, plain_raw, plain_at = solved(plain_calls)
+        rows, plain_rows = [], []
+        for c, tk in enumerate(tickets):
+            check(tk.status == "done" and tk.batched_with == CLASSES,
+                  f"serve: request {c} {tk.status} in a group of "
+                  f"{tk.batched_with}")
+            r, pr = at[c], plain_at[c]
+            mine = tuple(x[r] for x in raw)
+            bits(tk.result[:4], normalized(mine), f"serve: request {c}")
+            rec = agree(torch, pcg, targets[c], mine,
+                        omp.omp_select(pcg, targets[c], SERVE_REQ_K),
+                        lambda t, r=r: [x[r] for x in batched_at(padded, t)],
+                        lambda t, c=c: omp.omp_select(pcg, targets[c], t),
+                        f"serve: request {c} against its omp_select")
+            if rec["parted_at"] is not None:
+                rows.append({"request": c, **rec})
+            rec = agree(torch, pcg, targets[c],
+                        tuple(x[pr] for x in plain_raw), mine,
+                        lambda t, pr=pr: [x[pr] for x in batched_at(
+                            plain_padded, t, "ref")],
+                        lambda t, r=r: [x[r] for x in batched_at(padded, t)],
+                        f"serve: request {c}, plain versions")
+            check(plain_tickets[c].status == "done", "serve: a plain "
+                  "request failed")
+            if rec["parted_at"] is not None:
+                plain_rows.append({"request": c, **rec})
+
+        # an anytime extension 128 -> 192 against a one-shot 192
+        def extension():
+            sid, _ = live.open_session(live_pid, SERVE_REQ_K)
+            return live.extend_session(sid, SERVE_EXT_K), sid
+        ext, sid = measure("serve-extension", extension)
+        needs("serve-extension", ("corr", "corr_argmax"))
+        raw_ext = omp.session_result(live.sessions.get(sid).state)
+        bits(ext[:4], normalized(raw_ext), "serve: the extension")
+        ext_rec = agree(
+            torch, pcg, target, raw_ext,
+            omp.omp_select(pcg, target, SERVE_EXT_K),
+            lambda t: omp.session_result(omp.omp_session_start(pcg, target,
+                                                               t)),
+            lambda t: omp.omp_select(pcg, target, t),
+            "serve: extension against a one-shot solve")
+        emit("serve", part="batched", requests=CLASSES, k=SERVE_REQ_K,
+             padded_to=SERVE_BUCKET, seconds=seconds["serve-batched"],
+             parted=rows, plain_parted=plain_rows,
+             kernels={name: records[name]["serve"] for name in BATCHED},
+             extension={"from": SERVE_REQ_K, "to": SERVE_EXT_K,
+                        "seconds": seconds["serve-extension"], **ext_rec},
+             launches=launches("serve-batched", BATCHED))
+
+        # 3. one request of each other strategy, each against a direct call
+        # of the same engine
+        singles = {}
+
+        def gen():
+            return torch.Generator(device="cuda").manual_seed(0)
+
+        cases = [
+            ("craig-lazy", live_pid, ("fl_gain_argmax_otf_tc",),
+             lambda: craig_lib.craig(pcg, SERVE_REQ_K, method="lazy",
+                                     generator=gen())),
+            ("glister", live_pid, ("corr_argmax",),
+             lambda: glister_lib.glister(pcg, target, SERVE_REQ_K)),
+            ("random", live_pid, (),
+             lambda: random_sel.random_select(gen(), n, SERVE_REQ_K)),
+            ("gradmatch-partitioned", live_pid, BATCHED + ("corr",
+                                                           "corr_argmax"),
+             lambda: part_lib.gradmatch_partitioned(pcg, SERVE_REQ_K)),
+        ]
+        for strategy, p_id, names, direct in cases:
+            t = measure(f"serve-{strategy}",
+                        lambda: serve_one(live, p_id, SERVE_REQ_K,
+                                          strategy=strategy))
+            needs(f"serve-{strategy}", names)
+            bits(t.result[:4], direct()[:4], f"serve: {strategy}")
+            singles[strategy] = {"seconds": seconds[f"serve-{strategy}"],
+                                 "launches": launches(f"serve-{strategy}",
+                                                      names)}
+        # gradmatch on the chunked pool: the streaming engine
+        pool = ChunkedPool(pcg, chunk_size=STREAM_CHUNK)
+        cpid = live.register_chunked_pool(pool, cache_bytes=256 << 20)
+        t = measure("serve-chunked", lambda: serve_one(live, cpid,
+                                                       SERVE_REQ_K))
+        needs("serve-chunked", ("corr", "bound_max"))
+        direct = streaming.gradmatch_streaming(
+            streaming.chunked_pool_iter(pool), SERVE_REQ_K,
+            cache_bytes=256 << 20, row_fetch=streaming.array_row_fetch(pcg),
+            buffer_size=live.scheduler.stream_buffer)
+        bits(t.result[:4], direct[:4], "serve: gradmatch on the chunked "
+             "pool")
+        singles["gradmatch-chunked"] = {
+            "seconds": seconds["serve-chunked"],
+            "launches": launches("serve-chunked", ("corr", "bound_max")),
+            "passes": t.result.stats.passes}
+        # craig-lazy on the launcher's 4 096 x 64 pool: a resident sim
+        g_l = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            SERVE_LAUNCHER_POOL).astype(np.float32)).cuda()
+        lpid = live.register_pool(g_l)
+        t = measure("serve-craig-resident", lambda: serve_one(
+            live, lpid, SERVE_REQ_K, strategy="craig-lazy"))
+        needs("serve-craig-resident", ("fl_gain_argmax",))
+        bits(t.result[:4], craig_lib.craig(g_l, SERVE_REQ_K, method="lazy",
+                                           generator=gen())[:4],
+             "serve: craig-lazy on the launcher's pool")
+        singles["craig-resident"] = {
+            "seconds": seconds["serve-craig-resident"],
+            "launches": launches("serve-craig-resident",
+                                 ("fl_gain_argmax",))}
+        emit("serve", part="strategies", k=SERVE_REQ_K, paths=singles)
+        del live
+
+        # 4. the launcher at its defaults: --smoke, then --load
+        smoke = measure("serve-launcher-smoke", lambda: serve_selection.main(
+            ["--smoke"], on_parting=certify))
+        check(smoke["ok"], f"serve_selection --smoke: {smoke['failures']}")
+        load = measure("serve-launcher-load", lambda: serve_selection.main(
+            ["--load"], on_parting=certify))
+        check(load["ok"] and load["violations"] == []
+              and load["completed"] > 0, f"serve_selection --load: {load}")
+        emit("serve", part="launcher", smoke=smoke,
+             load={key: load[key] for key in (
+                 "requests", "completed", "shed", "failed", "rejected",
+                 "sustained_rps", "p50_ms", "p99_ms", "tenant_p99_ms",
+                 "rungs", "fairness_ratio", "faults_injected", "overload",
+                 "violations")},
+             seconds={"smoke": seconds["serve-launcher-smoke"],
+                      "load": seconds["serve-launcher-load"]})
+
+        # 5. a stream session with a snapshot every SERVE_STREAM_KILL
+        # batches; killed after batch SERVE_STREAM_KILL (its later snapshot
+        # deleted) and reopened on its checkpoint, against the same stream
+        # never killed
+        b, nb, cap, ks = SERVE_STREAM
+        stream_target = pcg.sum(dim=0)
+        batches = [(pcg[i * b:(i + 1) * b], np.arange(i * b, (i + 1) * b))
+                   for i in range(nb)]
+        ssvc = SelectionService()
+        where = os.path.join(root, "stream")
+
+        def stream(start=0):
+            sid = ssvc.open_stream(d=d, k=ks, target=stream_target,
+                                   capacity=cap, checkpoint_dir=where,
+                                   checkpoint_every=SERVE_STREAM_KILL)
+            for rows_, gids in batches[start:]:
+                res = ssvc.push_stream(sid, rows_, gids=gids)
+            return sid, res
+
+        (sid_ref, ref), never_s = timed(lambda: measure("serve-stream",
+                                                        stream))
+        shutil.rmtree(os.path.join(where, f"step_{nb:010d}"))
+        (sid_res, res), resumed_s = timed(
+            lambda: stream(start=SERVE_STREAM_KILL))
+        needs("serve-stream", ("corr", "corr_argmax"))
+        m_ref = ssvc.streams.get(sid_ref).maintainer
+        m_res = ssvc.streams.get(sid_res).maintainer
+        check(res.stats.resumes == 1, "serve: the stream did not resume")
+        bits(m_res.slot_result(), m_ref.slot_result(),
+             "serve: the resumed stream against the never-killed one")
+        bits(res[:4], ref[:4], "serve: the resumed stream's coreset")
+        check(torch.equal(m_ref.pool_view()[0], m_res.pool_view()[0])
+              and np.array_equal(m_ref._gids, m_res._gids),
+              "serve: the resumed stream's pool or gids differ")
+        emit("serve", part="stream", batch=b, batches=nb, capacity=cap,
+             k=ks, killed_after=SERVE_STREAM_KILL,
+             seconds={"never_killed": never_s, "resumed": resumed_s},
+             admits=res.stats.admits, evicts=res.stats.evicts,
+             replayed_rounds=res.stats.rounds, bit_equal=True,
+             launches=launches("serve-stream", ("corr", "corr_argmax")))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # every kernel the serving paths reach launched on one of them
+    for name in SERVE_KERNELS:
+        check(any(c[name] > 0 for c in counts.values()),
+              f"kernel {name} was not launched on any serve path")
+    emit("serve", what="phase", seconds=time.perf_counter() - t_phase,
+         launches={p: {k: v for k, v in c.items() if v} for p, c in
+                   counts.items()})
+    return {"counts": counts, "shapes": shapes, "routes": routes,
+            "selection_seconds": seconds, "absolute": absolute}
+
+
+def phase_kernels_serve(torch, np, card: dict, records: dict,
+                        sv: dict) -> None:
+    """Each kernel at every shape a serve path launched it at (``sv``, what
+    ``phase_serve`` returns), against its plain version on the card on
+    seeded random inputs of that shape, a tenth of the rows taken as in a
+    serving request's masks; ``corr_argmax`` at each ``abs`` flag the path
+    gave it.  The device operations a call are the kernels phases' check:
+    after the serve paths ``torch.profiler`` has been seen to record no
+    device operation at all on an H100.  A kernel with no hold here (the on-the-fly FL scans) keeps
+    the record an earlier kernels phase made at the same shape, and the
+    script fails where there is none.  Adds a record a path and shape."""
+    from repro_torch.core import greedy
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    t0 = time.perf_counter()
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev)
+
+    def live(*shape):
+        return torch.from_numpy(rng.random(shape) > 0.1).to(dev)
+
+    def hold(name, shape, per_problem, dtype, flags):
+        n, d = shape[:2]
+        if name == "corr":
+            return hold_corr(torch, card, rand(n, d).to(getattr(torch, dtype)),
+                             rand(d))
+        if name == "corr_argmax":
+            recs = []
+            for a in sorted(flags):
+                recs.append(hold_corr_argmax(
+                    torch, card, rand(n, d), rand(d, scale=1 / 16),
+                    rand(n, scale=3), live(n), a, f"serve ({n}, {d})"))
+                emit("kernels", kernel="corr_argmax", case="serve",
+                     absolute=a, **recs[-1])
+            return recs[0]
+        if name == "corr_batched":
+            return hold_corr_batched(torch, card, rand(n, d),
+                                     rand(shape[2], d), count_ops=False)
+        if name == "corr_argmax_batched":
+            b = shape[2]
+            mat = rand(b, n, d) if per_problem else rand(n, d)
+            return hold_corr_argmax_batched(
+                torch, card, mat, rand(b, d, scale=1 / 16),
+                rand(n, b, scale=3), live(n, b), False,
+                f"serve ({n}, {d}) B={b} per-problem={per_problem}",
+                count_ops=False)[0]
+        if name == "bound_max":
+            return hold_bound_max(torch, np, card, rng, n, d,
+                                  lambda: live(n), count_ops=False)
+        if name == "fl_gain_argmax":
+            # a resident similarity as the registry builds it
+            sim = greedy.build_sim(rand(n, SERVE_LAUNCHER_POOL[1]))
+            rec = hold_fl_gain(torch, card, sim,
+                               rand(n).abs_().mul_(4), live(n),
+                               f"serve ({n}, {n})")
+            emit("kernels", kernel="fl_gain_argmax", **rec)
+            return rec
+        earlier = [r for rec in records[name].values()
+                   for r in (rec if isinstance(rec, list) else [rec])
+                   if tuple(r["shape"]) == shape]
+        check(bool(earlier), f"{name} ran at {list(shape)} on a serve path "
+              "and no kernels phase measured that shape")
+        return earlier[0]
+
+    held = {}
+    for path, by_key in sv["shapes"].items():
+        ran = {key[0] for key in by_key}
+        for name, c in sv["counts"][path].items():
+            check(c == 0 or name in ran, f"{name} launched on {path} at "
+                  "no shape the serve phase caught")
+        recs = {}
+        for key in sorted(by_key):
+            shape, per_problem = ran_at(key)
+            hk = (key[0], shape, per_problem)
+            if hk not in held:
+                held[hk] = hold(key[0], shape, per_problem, key[3],
+                                sv["absolute"].get(key, {False}))
+            recs.setdefault(key[0], []).append(held[hk])
+        for name, lst in recs.items():
+            records[name][path] = lst[0] if len(lst) == 1 else lst
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit("kernels_serve", seconds=time.perf_counter() - t0,
+         held=[{"kernel": k, "shape": list(sh), "per_problem": pp}
+               for k, sh, pp in held])
 
 
 def resilience_lm_config():
@@ -3174,7 +3848,8 @@ def phase_resilience(torch, np, tr: dict, stream_parts: dict) -> dict:
 
         # 4. LM driver kill and resume: gemma-2b at full width, depth cut
         # to RES_LM_LAYERS, RES_LM_STEPS steps with a snapshot every
-        # RES_LM_EVERY; the last snapshot deleted and the run again.
+        # RES_LM_EVERY (one, at RES_LM_EVERY: a kill before the next); the
+        # run again from it.
         where = os.path.join(root, "lm")
         argv = [*LM_ARGV, "--steps", str(RES_LM_STEPS), "--checkpoint-dir",
                 where, "--checkpoint-every", str(RES_LM_EVERY)]
@@ -3190,7 +3865,9 @@ def phase_resilience(torch, np, tr: dict, stream_parts: dict) -> dict:
             del model
             gc.collect()
             torch.cuda.empty_cache()
-            shutil.rmtree(os.path.join(where, f"step_{RES_LM_STEPS:010d}"))
+            snaps = sorted(os.listdir(where))
+            check(snaps == [f"step_{RES_LM_EVERY:010d}"],
+                  f"lm: snapshots {snaps}")
             model = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(
                 1), dev)
             rep2, lm2_s = measure("lm-resume",
@@ -3613,6 +4290,11 @@ def kernels_line(torch, records: dict, runs) -> list:
                          for p, c in r["selection_seconds"].items()}
     kernels = []
     kernel_s = {path: 0.0 for path in counts}
+
+    def measured(r):
+        """What a record was measured at, as ``ran_at`` gives a launch."""
+        return (tuple(r["shape"]), r.get("per_problem", False))
+
     for name, (source, replaces) in KERNEL_SOURCES.items():
         # The top-level numbers are those at MAIN_PATH's shape; "paths"
         # holds each path that launched the kernel, with its launches and
@@ -3630,12 +4312,14 @@ def kernels_line(torch, records: dict, runs) -> list:
             recs = rec if isinstance(rec, list) else [rec]
             rec = recs[0]
             paths[path] = {"launches": c[name], **rec}
+            # this kernel's launches on this path by (shape, per-problem)
+            at = {}
+            for key, n in shapes[path].items():
+                if key[0] == name:
+                    at[ran_at(key)] = at.get(ran_at(key), 0) + n
             if len(recs) > 1:
-                at = {tuple(key[1:3]): n for key, n in shapes[path].items()
-                      if key[0] == name}
                 paths[path]["at_shapes"] = [
-                    {"launches": at.get(tuple(r["shape"]), 0), **r}
-                    for r in recs]
+                    {"launches": at.get(measured(r), 0), **r} for r in recs]
                 check(sum(e["launches"] for e in paths[path]["at_shapes"])
                       == c[name], f"{name} on {path}: launches at measured "
                       f"shapes do not add up to {c[name]}")
@@ -3644,17 +4328,15 @@ def kernels_line(torch, records: dict, runs) -> list:
                         if k.startswith(name + "/")}
             if by_route:
                 paths[path]["launches_by_route"] = by_route
-            for kname, n, d, _, *batch in shapes[path]:
-                # a batched kernel's key adds (B, per-problem matrix): the
-                # paths give it a shared pool, measured at its B
-                ran = [n, d, *batch[:1]]
-                per_problem = bool(batch[1:] and batch[1])
-                check(kname != name or name == "corr"
-                      or (any(r["shape"] == ran for r in recs)
-                          and not per_problem),
-                      f"{name} ran at {ran} (per-problem: {per_problem}) "
-                      f"on {path}, measured at "
-                      f"{[r['shape'] for r in recs]}")
+            for ran in at:
+                # a batched kernel's key adds (B, per-problem matrix): it
+                # is measured at its B, on a shared pool unless the record
+                # says per-problem
+                check(name == "corr"
+                      or any(measured(r) == ran for r in recs),
+                      f"{name} ran at {list(ran[0])} (per-problem: "
+                      f"{ran[1]}) on {path}, measured at "
+                      f"{[measured(r) for r in recs]}")
             if name == "corr":
                 continue
             if len(recs) > 1:
@@ -3723,8 +4405,10 @@ def main() -> int:
     st = run("stream", phase_stream, torch, np, train, tr["val"])
     pa = run("partition", phase_partition, torch, np, train, tr["val"])
     run("resilience", phase_resilience, torch, np, tr, st["partial"])
+    sv = run("serve", phase_serve, torch, np, tr, records)
+    run("kernels_serve", phase_kernels_serve, torch, np, card, records, sv)
     lm_ = run("lm", phase_lm, torch, np, card, records)
-    runs = (tr, ba, cr, st, pa, lm_)
+    runs = (tr, ba, cr, st, pa, sv, lm_)
     kernels = run("kernels_line", kernels_line, torch, records, runs)
     emit("done", seconds=time.perf_counter() - t_start, phases=phase_s)
     print(card["smi"])

@@ -526,7 +526,8 @@ def omp_session_trajectory(
     The session engine's width schedule does not depend on the budget, so
     round-by-round extension equals a direct one: row ``t-1`` is what a
     fresh ``omp_session_start(grads, target, t)`` reports, bit for bit.
-    One host round trip a round (weights and err), the cost of recording.
+    The rows are recorded on the pool's device and taken to the host in
+    one copy at the end.
     """
     k_max = int(k_max)
     if k_max < 1:
@@ -534,18 +535,20 @@ def omp_session_trajectory(
     sess = omp_session_start(grads, target, 0, lam=lam, eps=eps,
                              nnls_iters=nnls_iters, positive=positive,
                              valid=valid, block=block)
-    weights_traj = np.zeros((k_max, k_max), np.float32)
-    err_trace = np.zeros((k_max,), np.float32)
+    # (k_max, k_max + 1): row t-1 holds the weights after round t, then
+    # its err in the last column
+    rec = torch.zeros((k_max, k_max + 1), dtype=torch.float32,
+                      device=sess.c0.device)
     for t in range(1, k_max + 1):
         sess = _extend(grads, sess, t, copy=False)
-        row = torch.cat([sess.weights, sess.err.view(1)]).cpu().numpy()
-        weights_traj[t - 1, :t] = row[:t]
-        err_trace[t - 1] = row[t]
+        rec[t - 1, :t] = sess.weights
+        rec[t - 1, k_max] = sess.err
+    rec = rec.cpu().numpy()
     traj = OMPTrajectory(
         indices=sess.indices.cpu().numpy().astype(np.int32),
         mask=sess.mask.cpu().numpy().astype(bool),
-        weights_traj=weights_traj,
-        err_trace=err_trace,
+        weights_traj=np.ascontiguousarray(rec[:, :k_max]),
+        err_trace=np.ascontiguousarray(rec[:, k_max]),
     )
     return sess, traj
 

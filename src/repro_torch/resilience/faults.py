@@ -19,12 +19,17 @@ in the same places).
 
 Corruption is injected silently (perturbed rows, no exception), and never
 on a chunk's first read: the sidecar written then is the ground truth the
-engine's detector compares against.  The reference's disk faults
-(``inject_disk_fault``) come with the artifact store.
+engine's detector compares against.
+
+The disk faults (``DISK_FAULT_KINDS``, ``inject_disk_fault``) are the
+artifact store's adversary: each corrupts a committed artifact in place
+at seeded coordinates drawn as the reference draws them, so one fault
+mutates the same bytes in both packages' stores.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import Counter
 from dataclasses import dataclass
@@ -218,6 +223,22 @@ def faulty_row_fetch(inner: Callable, plan: FaultPlan,
     return fetch
 
 
+# ---------------------------------------------------------------------------
+# disk faults: the artifact store's adversary (DESIGN.md §12)
+# ---------------------------------------------------------------------------
+
+# Every way the fault suite knows how to corrupt a committed artifact: for
+# each kind the store must either serve a verified artifact or report a
+# miss, never a corrupt result.
+DISK_FAULT_KINDS = (
+    "torn-write",          # a blob truncated at a seeded byte offset
+    "bit-flip",            # one seeded bit flipped inside a blob
+    "truncated-manifest",  # the manifest cut off at a seeded offset
+    "kill-between-rename", # blobs committed, manifest never renamed in
+    "stale-version",       # valid manifest from an old schema version
+)
+
+
 def crash_after(stage: str) -> Callable[[str], None]:
     """A commit hook that raises ``SimulatedCrash`` when the commit reaches
     ``stage``, leaving the state a kill at that point would leave."""
@@ -227,3 +248,70 @@ def crash_after(stage: str) -> Callable[[str], None]:
             raise SimulatedCrash(f"simulated kill at commit stage {at!r}")
 
     return hook
+
+
+def inject_disk_fault(store, ident: str, kind: str, seed: int = 0) -> dict:
+    """Corrupt the *committed* artifact ``ident`` in ``store`` in place.
+
+    Pure function of ``(seed, kind, ident)``: which blob, which byte and
+    which bit are draws of ``np.random.default_rng((seed, disk, kind
+    index, int(ident[:8], 16)))``, the reference's, so the same fault
+    mutates the same bytes in either package.  Returns a description of
+    what was done.  ``store`` is an ``ArtifactStore``, imported lazily.
+    """
+    import json
+
+    if kind not in DISK_FAULT_KINDS:
+        raise ValueError(f"unknown disk fault kind {kind!r}; "
+                         f"known: {DISK_FAULT_KINDS}")
+    man_path = store.manifest_path(ident)
+    with open(man_path) as f:
+        manifest = json.load(f)
+    rng = np.random.default_rng(
+        (int(seed), _KIND["disk"], DISK_FAULT_KINDS.index(kind),
+         int(ident[:8], 16)))
+
+    if kind in ("torn-write", "bit-flip"):
+        blobs = sorted(manifest["blobs"].items())
+        name, spec = blobs[int(rng.integers(len(blobs)))]
+        path = store.object_path(spec["sha256"])
+        size = spec["nbytes"]
+        if kind == "torn-write":
+            cut = int(rng.integers(max(size - 1, 1)))
+            with open(path, "rb+") as f:
+                f.truncate(cut)
+            return {"kind": kind, "blob": name, "cut_at": cut}
+        byte = int(rng.integers(size))
+        bit = int(rng.integers(8))
+        with open(path, "rb+") as f:
+            f.seek(byte)
+            (old,) = f.read(1)
+            f.seek(byte)
+            f.write(bytes([old ^ (1 << bit)]))
+        return {"kind": kind, "blob": name, "byte": byte, "bit": bit}
+
+    if kind == "truncated-manifest":
+        size = max(store_manifest_size(store, ident), 2)
+        cut = int(rng.integers(1, size))
+        with open(man_path, "rb+") as f:
+            f.truncate(cut)
+        return {"kind": kind, "cut_at": cut}
+
+    if kind == "kill-between-rename":
+        # The state a kill between the blob renames and the manifest
+        # rename leaves: objects present, manifest absent.
+        os.unlink(man_path)
+        return {"kind": kind}
+
+    # stale-version: a self-consistent manifest (valid checksum) whose
+    # schema the reader does not speak: version skew, not bit rot.
+    from repro_torch.artifacts.store import manifest_self_sha
+    manifest["schema"] = 0
+    manifest["manifest_sha"] = manifest_self_sha(manifest)
+    with open(man_path, "w") as f:
+        json.dump(manifest, f, sort_keys=True)
+    return {"kind": kind, "schema": 0}
+
+
+def store_manifest_size(store, ident: str) -> int:
+    return os.path.getsize(store.manifest_path(ident))

@@ -46,7 +46,20 @@ def test_port_files_exist():
                  "src/repro_torch/resilience/circuit.py",
                  "src/repro_torch/resilience/degrade.py",
                  "src/repro_torch/core/decremental.py",
-                 "src/repro_torch/continual/buffer.py"):
+                 "src/repro_torch/continual/buffer.py",
+                 "src/repro_torch/artifacts/__init__.py",
+                 "src/repro_torch/artifacts/store.py",
+                 "src/repro_torch/artifacts/verify.py",
+                 "src/repro_torch/artifacts/build.py",
+                 "src/repro_torch/serve/__init__.py",
+                 "src/repro_torch/serve/admission.py",
+                 "src/repro_torch/serve/sessions.py",
+                 "src/repro_torch/serve/registry.py",
+                 "src/repro_torch/serve/scheduler.py",
+                 "src/repro_torch/serve/service.py",
+                 "src/repro_torch/serve/loadgen.py",
+                 "src/repro_torch/launch/build_artifacts.py",
+                 "src/repro_torch/launch/serve_selection.py"):
         assert must in names
 
 
@@ -70,6 +83,9 @@ def test_trainer_import_loads_no_jax():
     code = ("import sys; import repro_torch.train.trainer; "
             "import repro_torch.kernels.ops; "
             "import repro_torch.launch.train; "
+            "import repro_torch.serve, repro_torch.artifacts; "
+            "import repro_torch.launch.serve_selection; "
+            "import repro_torch.launch.build_artifacts; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('ok')")
@@ -198,3 +214,31 @@ def test_lm_driver_refuses_the_cpu_without_being_asked():
                       "--micro-batch", "1", "--seq-len", "4", "--device",
                       "cpu"])
     assert rep["device"] == "cpu"
+
+
+def test_serving_entry_points_refuse_the_cpu_without_being_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    import numpy as np
+
+    from repro_torch.artifacts import ArtifactStore, build_artifact
+    from repro_torch.launch import build_artifacts, serve_selection
+    from repro_torch.serve import PoolRegistry, SelectionService
+
+    g = np.ones((16, 3), np.float32)
+    store = ArtifactStore(str(tmp_path / "store"))
+    for call in (lambda: SelectionService(),
+                 lambda: PoolRegistry(),
+                 lambda: build_artifact(store, g, g.sum(0), 2),
+                 lambda: serve_selection.main(["--smoke"]),
+                 lambda: serve_selection.main(["--load"]),
+                 lambda: build_artifacts.main(
+                     ["--smoke", "--store", str(tmp_path / "s")])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not os.path.exists(tmp_path / "s")
+    # asked for explicitly, the CPU is fine
+    svc = SelectionService(device="cpu")
+    assert svc.select(svc.register_pool(g), 2).indices.device.type == "cpu"
+    key, _ = build_artifact(store, g, g.sum(0), 2, device="cpu")
+    assert store.get(key) is not None
