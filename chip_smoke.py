@@ -72,7 +72,7 @@ Phases, one JSON line each:
               with the plain versions scoring at the pool's shape, each
               beside in-memory pooled GRAD-MATCH in the same arithmetic
               (index-exact with the kernels and at the pool's shape); the
-              trainer's first selection again, 256 rounds, with half the
+              trainer's first selection again, 128 rounds, with half the
               arena's bytes (LRU eviction, rounds certified by the cached
               chunks' bound and the sketch of the others, loader passes);
               and fetched proxy rows bit-equal to the scanned ones;
@@ -155,6 +155,33 @@ Phases, one JSON line each:
               killed after batch 8 and resumed, bit-equal to the stream
               never killed;
 
+ 13. lm_serve (after ``lm``) the LM served on the ``lm`` phase's gemma-2b
+              (full width and depth, bf16): ``launch/serve.main`` at its
+              defaults (8 requests in batches of 4, prompt 32, 16 tokens),
+              twice, its tokens a second; teacher-forced decode (prefill,
+              ``_seat``, one token at a time) against the train-mode
+              forward at the same positions, within 2e-2 of the largest
+              |logit|: prompt 32 -> 48, and 2 032 -> 2 048 where every
+              decode step flash-decodes the 2 048-slot caches; each greedy
+              token of ``serve.generate`` equal to the forward's argmax
+              unless its top-2 gap is under that limit; gemma2-9b at full
+              width cut to one (local, global) super-block, batch 2, prompt
+              5 104 -> 5 120 (past the 4 096 window and not a multiple of
+              it: the ring wraps, the global layer flash-decodes; the flash
+              threshold set to 5 120 so that the prompt prefills dense);
+              gemma-2b at f32 cut to 2 layers within 1e-5.  The launch
+              counts are read around the phase: none of its paths reaches
+              a kernel;
+ 14. lm_optim (after ``lm_serve``) gemma-2b at full width cut to 2 layers,
+              4 x 128 tokens a step: three AdamW steps (clip 1.0 under
+              ``exponential_decay``), the updates and slots of three leaves
+              held against an f64 recomputation from the step's gradients
+              and slots; two EF-TopK compressed SGD steps at a fraction of
+              0.01, each reference leaf (block leaves stacked over the
+              super-blocks) with ``dense + residual == acc`` bit for bit, k
+              entries kept, and the kept set the first k of a stable
+              descending sort of |acc|.  No kernel on these paths either;
+
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a card, or without the repo's
@@ -227,7 +254,8 @@ STATE_RTOL = 1e-5
 STREAM_CHUNK = 1024       # the trainer's chunk; select()'s is 2 048
 STREAM_BUF = 256 + 512    # buffer + repair annex rows
 PARTIAL_SLOTS = 32        # the partial cache's chunk slots (44 chunks)
-PARTIAL_K = 256           # rounds of the partial-cache selection
+PARTIAL_K = 128           # rounds of the partial-cache selection (cut
+                          # from 256: one 128-round block)
 STREAM_CHECK_K = 1024     # rounds of the streaming vs in-memory checks
 LOOP_K = 1280             # budget of the batched-engine vs loop check
 CRAIG_PATHS = ("craig-lazy", "craig-lazy-otf", "craig-stochastic",
@@ -311,6 +339,22 @@ LM_ARGV = ["--arch", "gemma-2b"]
 LM_PARAMS = 2_506_172_416           # gemma-2b's parameters (tied head)
 LM_HG_LIMIT = 1e-4                  # hidden_grad vs plain, of max |out|
 LM_TRACE_STEPS = 3                  # steps timed part by part
+SERVE_LM_GEN = 16                   # launch/serve's --gen-len default
+SERVE_LM_PROMPT = 32                # and its --prompt-len
+SERVE_LM_BATCH = 4                  # and its --batch
+SERVE_LM_BF16_LIMIT = 2e-2          # decode vs forward at bf16, of max |logit|
+#                                     (6.8e-3 the largest in a first run)
+SERVE_LM_F32_LIMIT = 1e-5           # the same at f32
+SERVE_FLASH_PROMPT = 2032           # + 16 = 2 048 slots: flash-decoding
+SERVE_G2_PROMPT = 5104              # gemma2-9b: past the 4 096 window, not a
+SERVE_G2_BATCH = 2                  # multiple of it; + 16 = 5 120 slots
+SERVE_F32_LAYERS = 2                # gemma-2b at f32 cut to 2 layers
+OPTIM_BATCH = (4, 128)              # lm_optim: 4 x 128 tokens a step
+OPTIM_ADAMW_STEPS = 3
+OPTIM_LR = 1e-3                     # exponential_decay(1e-3, 2)
+OPTIM_LEAVES = ("embed", "blocks.0.sub0.attn.wq", "blocks.1.sub0.norm2.scale")
+OPTIM_FRAC = 0.01                   # EF-TopK's fraction kept
+OPTIM_COMPRESSED_STEPS = 2
 
 
 def emit(phase: str, **kw) -> None:
@@ -4271,11 +4315,347 @@ def phase_lm(torch, np, card: dict, records: dict) -> dict:
     del z, logits, got, again, want, ffma
     parts = lm_step_parts(torch, cfg, model, stream, args, proxy_fn)
     emit("lm", path="lm-trace", **parts)
-    del model
     gc.collect()
     torch.cuda.empty_cache()
     return {"counts": counts, "shapes": shapes,
-            "selection_seconds": {"lm": rep["selection_s"]}}
+            "selection_seconds": {"lm": rep["selection_s"]}, "model": model}
+
+
+def teacher_forced(torch, cfg, model, tok, s0: int):
+    """Prefill ``tok[:, :s0]``, seat it into ``tok.shape[1]`` slots and
+    decode the rest of ``tok`` a token at a time; and the train-mode
+    forward over all of ``tok``.  Returns both packages' logits over the
+    real vocabulary at positions s0 - 1 .. S - 1, f32, (B, S - s0 + 1, V)
+    each."""
+    from repro_torch.launch.serve import _seat
+    from repro_torch.models import lm
+
+    b, s = tok.shape
+    v = cfg.vocab_size
+    with torch.no_grad():
+        logits, pstate = lm.prefill_step(cfg, model, tok[:, :s0])
+        state = _seat(lm.init_decode_state(cfg, b, s, tok.device), pstate)
+        del pstate
+        dec = [logits[:, :v].float()]
+        for t in range(s0, s):
+            logits, state = lm.decode_step(cfg, model, state,
+                                           tok[:, t:t + 1], t)
+            dec.append(logits[:, :v].float())
+        del state
+        h, _, _ = lm.forward(cfg, model, tok)
+        fwd = lm.mask_padded_logits(cfg, lm._head_out(cfg, model,
+                                                      h[:, s0 - 1:]))
+    return torch.stack(dec, dim=1), fwd[..., :v].float()
+
+
+def decode_vs_forward(torch, cfg, model, tok, s0: int, limit: float,
+                      what: str) -> dict:
+    """``teacher_forced``'s two sets of logits: the largest difference
+    relative to the forward's largest |logit|, held to ``limit``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec, fwd = teacher_forced(torch, cfg, model, tok, s0)
+    torch.cuda.synchronize()
+    scale = float(fwd.abs().max())
+    err = float((dec - fwd).abs().max()) / scale
+    finite = bool(torch.isfinite(dec).all())
+    out = dict(what=what, batch=tok.shape[0], prompt=s0, s_max=tok.shape[1],
+               dtype=cfg.param_dtype, layers=cfg.n_layers, rel_err=err,
+               limit=limit, max_abs_logit=scale,
+               argmax_equal=float((dec.argmax(-1) == fwd.argmax(-1)).float()
+                                  .mean()),
+               seconds=time.perf_counter() - t0)
+    emit("lm_serve", **out)
+    check(finite, f"{what}: decode logits not finite")
+    check(err <= limit, f"{what}: decode vs forward {err} of max |logit| "
+          f"(limit {limit})")
+    return out
+
+
+def phase_lm_serve(torch, np, card: dict, model) -> dict:
+    """Serving the LM on the card: ``launch/serve.main`` at its defaults
+    on the ``lm`` phase's gemma-2b (full width and depth), then teacher-
+    forced decode against the train-mode forward (bf16 at full depth, the
+    flash-decoding path at 2 048 slots, gemma2-9b at full width past its
+    window, f32 at full width), and each greedy token against the
+    forward's argmax.  The launch counts are set to 0 before the serving
+    paths and read after: these paths reach no kernel of the port."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, lm
+
+    dev = next(model.parameters()).device
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    flash_calls = []
+    flash = attention._decode_attend_blockwise
+
+    def counted(*a, **kw):
+        flash_calls.append(a[2].shape[1])
+        return flash(*a, **kw)
+
+    attention._decode_attend_blockwise = counted
+    try:
+        # 1. the launcher at its defaults, twice (the first call pays the
+        # card's first launches of these shapes)
+        reps = [serve.main([], model=model) for _ in range(2)]
+        emit("lm_serve", what="serve.main", arch=cfg.name, smi=card["smi"],
+             reports=reps, tok_per_s=[r["tok_per_s"] for r in reps])
+        for r in reps:
+            check(r["requests"] == 8 and r["tokens"] == 8 * SERVE_LM_GEN,
+                  f"serve.main served {r}")
+
+        gen = torch.Generator(device=dev).manual_seed(0)
+        s_tot = SERVE_LM_PROMPT + SERVE_LM_GEN
+        res = {}
+
+        # 2. teacher-forced decode against the forward, bf16, full depth
+        tok = torch.randint(0, cfg.vocab_size, (SERVE_LM_BATCH, s_tot),
+                            generator=gen, device=dev, dtype=torch.int32)
+        res["bf16"] = decode_vs_forward(torch, cfg, model, tok,
+                                        SERVE_LM_PROMPT, SERVE_LM_BF16_LIMIT,
+                                        "gemma-2b bf16")
+
+        # 3. each greedy token against the forward's argmax on the prompt
+        # and the tokens fed back, unless its top-2 gap is under the limit
+        prompts = tok[:, :SERVE_LM_PROMPT]
+        out = serve.generate(cfg, model, prompts, SERVE_LM_GEN)
+        with torch.no_grad():
+            seq = torch.cat([prompts, out[:, :SERVE_LM_GEN]], dim=1)
+            h, _, _ = lm.forward(cfg, model, seq)
+            fwd = lm.mask_padded_logits(cfg, lm._head_out(
+                cfg, model, h[:, SERVE_LM_PROMPT - 1:])).float()
+        top2 = fwd.topk(2, dim=-1).values
+        gap = (top2[..., 0] - top2[..., 1]) / float(fwd.abs().max())
+        differ = fwd.argmax(-1) != out.long()
+        bad = int((differ & (gap >= SERVE_LM_BF16_LIMIT)).sum())
+        emit("lm_serve", what="greedy", tokens=out.tolist(),
+             differ=int(differ.sum()), differ_over_limit=bad,
+             min_gap=float(gap.min()))
+        check(bad == 0, f"{bad} greedy tokens part from the forward's "
+              "argmax by more than the limit")
+
+        # 4. flash-decoding: a 2 032-token prompt, 2 048 slots
+        n_flash = len(flash_calls)
+        tok = torch.randint(0, cfg.vocab_size, (SERVE_G2_BATCH,
+                                                SERVE_FLASH_PROMPT
+                                                + SERVE_LM_GEN),
+                            generator=gen, device=dev, dtype=torch.int32)
+        res["flash"] = decode_vs_forward(torch, cfg, model, tok,
+                                         SERVE_FLASH_PROMPT,
+                                         SERVE_LM_BF16_LIMIT,
+                                         "gemma-2b bf16 flash-decoding")
+        want = SERVE_LM_GEN * cfg.n_layers
+        check(len(flash_calls) - n_flash == want, f"flash-decoding ran "
+              f"{len(flash_calls) - n_flash} times, not {want}")
+        del tok
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5. gemma2-9b at full width, one (local, global) super-block: the
+        # ring wraps inside the window, the global layer flash-decodes.
+        # The threshold is the cache length, so the 5 104-token prompt
+        # prefills dense (the blockwise prefill needs a multiple of
+        # flash_block_q) and the 5 120-slot cache flash-decodes.
+        s_g2 = SERVE_G2_PROMPT + SERVE_LM_GEN
+        g2cfg = get_config("gemma2-9b").replace(n_layers=2, n_superblocks=1,
+                                                flash_threshold=s_g2)
+        g2 = lm.init_lm(g2cfg, torch.Generator(device=dev).manual_seed(0),
+                        dev)
+        tok = torch.randint(0, g2cfg.vocab_size, (SERVE_G2_BATCH, s_g2),
+                            generator=gen, device=dev, dtype=torch.int32)
+        n_flash = len(flash_calls)
+        res["gemma2"] = decode_vs_forward(torch, g2cfg, g2, tok,
+                                          SERVE_G2_PROMPT,
+                                          SERVE_LM_BF16_LIMIT,
+                                          "gemma2-9b bf16, 1 super-block")
+        check(len(flash_calls) - n_flash == SERVE_LM_GEN and set(
+            flash_calls[n_flash:]) == {s_g2}, "gemma2-9b's global layer "
+              "did not flash-decode its 5 120-slot cache at every step")
+        del g2, tok
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 6. f32 at full width, 2 layers
+        f32cfg = get_config("gemma-2b").replace(
+            n_layers=SERVE_F32_LAYERS, n_superblocks=SERVE_F32_LAYERS,
+            param_dtype="float32")
+        f32 = lm.init_lm(f32cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+        tok = torch.randint(0, f32cfg.vocab_size, (SERVE_LM_BATCH, s_tot),
+                            generator=gen, device=dev, dtype=torch.int32)
+        res["f32"] = decode_vs_forward(torch, f32cfg, f32, tok,
+                                       SERVE_LM_PROMPT, SERVE_LM_F32_LIMIT,
+                                       "gemma-2b f32, 2 layers")
+        del f32, tok
+    finally:
+        attention._decode_attend_blockwise = flash
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    emit("lm_serve", what="phase", launches=counts,
+         flash_decode_calls=len(flash_calls),
+         seconds=time.perf_counter() - t_phase)
+    check(not any(counts.values()), f"the serving paths launched {counts}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_lm_optim(torch, np) -> dict:
+    """The LM training options at gemma-2b's full width, cut to 2 layers,
+    4 x 128 tokens a step: AdamW (clip 1.0, ``exponential_decay``), each
+    update of three leaves held against an f64 recomputation from the
+    step's gradients and slots; then EF-TopK compressed SGD, each leaf's
+    compression held to its definition.  The launch counts are set to 0
+    before and read after: these paths reach no kernel of the port."""
+    import gc
+
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, exponential_decay, sgd
+    from repro_torch.train import compression as comp
+    from repro_torch.train.steps import (init_compression_state,
+                                         lm_train_step_fn, make_lm_train_step,
+                                         reference_leaves)
+
+    dev = torch.device("cuda")
+    cfg = resilience_lm_config()
+    t_phase = time.perf_counter()
+    stream = TokenStream(seed=0, batch_per_shard=OPTIM_BATCH[0],
+                         seq_len=OPTIM_BATCH[1], vocab=cfg.vocab_size,
+                         n_shards=1, device=dev)
+    ops.reset_launch_counts()
+
+    def batch(step):
+        b = dict(stream.batch(step))
+        b["weights"] = torch.full((OPTIM_BATCH[0],), 1.0 / OPTIM_BATCH[0],
+                                  device=dev)
+        return b
+
+    # 1. AdamW under exponential decay, clip 1.0
+    model = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    named = dict(model.named_parameters())
+    sched = exponential_decay(OPTIM_LR, 2)
+    opt = adamw(model.parameters(), sched)
+    g0 = opt.param_groups[0]
+    b1, b2, eps, wd = g0["b1"], g0["b2"], g0["eps"], g0["weight_decay"]
+    step_fn = lm_train_step_fn(cfg, model, opt)
+    adam = []
+    for t in range(OPTIM_ADAMW_STEPS):
+        before = {}
+        for name in OPTIM_LEAVES:
+            p = named[name]
+            st = opt.state[p]
+            zero = torch.zeros(p.shape, dtype=torch.float64, device=dev)
+            before[name] = (p.detach().double(),
+                            st["m"].double() if "m" in st else zero,
+                            st["v"].double() if "v" in st else zero)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step_fn(batch(t))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        norm = float(torch.sqrt(sum(p.grad.double().square().sum()
+                                    for p in named.values())))
+        scale = min(1.0, 1.0 / max(norm, 1e-12))
+        lr_t, n = sched(t), t + 1
+        errs = {}
+        for name in OPTIM_LEAVES:
+            p = named[name]
+            p0, m0, v0 = before[name]
+            g = p.grad.double() * scale
+            m = b1 * m0 + (1 - b1) * g
+            v = b2 * v0 + (1 - b2) * g.square()
+            d = (m / (1 - b1 ** n)) / (torch.sqrt(v / (1 - b2 ** n)) + eps)
+            upd = -lr_t * (d + wd * p0)
+            want = p0 + upd
+            # two roundings (the update, then the sum), each at most half
+            # an ulp: 2^-8 of a bf16 value
+            room = (2.0 ** -7 if p.dtype == torch.bfloat16 else 1e-5) * (
+                want.abs() + upd.abs())
+            miss = ((p.detach().double() - want).abs() / room).max()
+            st = opt.state[p]
+            errs[name] = dict(
+                dtype=str(p.dtype).split(".")[1],
+                param_over_room=float(miss),
+                m_rel=float((st["m"].double() - m).abs().max()
+                            / m.abs().max()),
+                v_rel=float((st["v"].double() - v).abs().max()
+                            / v.abs().max()))
+        adam.append(dict(step=t, loss=float(metrics["loss"]),
+                         grad_norm=norm, clip_scale=scale, lr=lr_t,
+                         seconds=seconds, leaves=errs))
+        emit("lm_optim", what="adamw", **adam[-1])
+        check(np.isfinite(adam[-1]["loss"]), "an AdamW step's loss is not "
+              "finite")
+        for name, e in errs.items():
+            check(e["param_over_room"] <= 1.0, f"AdamW step {t}, {name}: "
+                  f"{e['param_over_room']} of its rounding room off f64")
+            check(e["m_rel"] <= 1e-5 and e["v_rel"] <= 1e-5,
+                  f"AdamW step {t}, {name}: slots off f64 by {e}")
+    del opt, step_fn, before, model, named
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. EF-TopK compressed SGD
+    model = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    named = dict(model.named_parameters())
+    leaves = reference_leaves(named)
+    opt = sgd(model.parameters(), OPTIM_LR)
+    step_fn = make_lm_train_step(cfg, model, opt, compress_frac=OPTIM_FRAC)
+    cs = init_compression_state(model)
+    compressed = []
+    for t in range(OPTIM_COMPRESSED_STEPS):
+        r_old = {k: r.clone() for k, r in cs.residual.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, cs = step_fn(batch(OPTIM_ADAMW_STEPS + t), cs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        bad = []
+        kept = 0
+        for key, names in leaves.items():
+            g = torch.stack([named[n].grad for n in names]) if (
+                key.startswith("blocks.")) else named[names[0]].grad
+            acc = g.float() + r_old[key]
+            dense, _, _ = comp.topk_sparsify(acc, OPTIM_FRAC)
+            k = max(int(acc.numel() * OPTIM_FRAC), 1)
+            resid = cs.residual[key]
+            # the first k of a stable descending sort of |acc|, against
+            # the support of what the step kept
+            first = torch.sort(acc.abs().reshape(-1), descending=True,
+                               stable=True).indices[:k]
+            support = (dense != 0).reshape(-1).nonzero().squeeze(1)
+            ok = (torch.equal(acc - dense, resid)
+                  and torch.equal(dense + resid, acc)
+                  and support.numel() == k
+                  and torch.equal(support, torch.sort(first).values))
+            kept += k
+            if not ok:
+                bad.append(key)
+            del g, acc, dense, first, support
+        compressed.append(dict(step=t, loss=float(metrics["loss"]),
+                               leaves=len(leaves), kept=kept,
+                               seconds=seconds, failed=bad))
+        emit("lm_optim", what="ef-topk", frac=OPTIM_FRAC, **compressed[-1])
+        check(not bad, f"EF-TopK step {t}: leaves {bad} break dense + "
+              "residual == acc, nnz == k or the stable top-k set")
+        check(np.isfinite(compressed[-1]["loss"]), "a compressed step's "
+              "loss is not finite")
+    counts = ops.launch_counts()
+    del model, named, opt, step_fn, cs, r_old
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("lm_optim", what="phase", launches=counts,
+         seconds=time.perf_counter() - t_phase)
+    check(not any(counts.values()), f"the optimizer paths launched {counts}")
+    return {"adamw": adam, "ef-topk": compressed}
 
 
 def kernels_line(torch, records: dict, runs) -> list:
@@ -4408,6 +4788,8 @@ def main() -> int:
     sv = run("serve", phase_serve, torch, np, tr, records)
     run("kernels_serve", phase_kernels_serve, torch, np, card, records, sv)
     lm_ = run("lm", phase_lm, torch, np, card, records)
+    run("lm_serve", phase_lm_serve, torch, np, card, lm_.pop("model"))
+    run("lm_optim", phase_lm_optim, torch, np)
     runs = (tr, ba, cr, st, pa, sv, lm_)
     kernels = run("kernels_line", kernels_line, torch, records, runs)
     emit("done", seconds=time.perf_counter() - t_start, phases=phase_s)

@@ -1,12 +1,19 @@
 """LM assembly, after ``repro/models/lm.py``: config -> init / forward /
-loss / selection proxy.
+loss / prefill / decode / selection proxy.
 
 The port covers the attention layer kinds (``attn``, ``local``,
-``global``) in train mode: the dense archs (gemma-2b, gemma2-9b,
-starcoder2-3b, codeqwen1.5-7b).  MoE, ``mamba2``, ``mlstm``, ``slstm``,
-``xattn``, ``shared_attn``, encoder-only heads and the prefill/decode modes
-raise ``NotImplementedError`` (ROADMAP queue 1, "The rest of the LM
-side").
+``global``): the dense archs (gemma-2b, gemma2-9b, starcoder2-3b,
+codeqwen1.5-7b), in the reference's three modes:
+
+  - ``train``:   stateless forward, recomputed per super-block with remat;
+  - ``prefill``: forward that also returns the decode state;
+  - ``decode``:  one token against the state, whose caches it writes in
+    place (``prefill_step`` / ``decode_step``, under ``no_grad``).
+
+MoE, ``mamba2``, ``mlstm``, ``slstm``, ``xattn``, ``shared_attn`` and
+encoder-only heads raise ``NotImplementedError`` (ROADMAP queue 1, "The
+rest of the LM side").  The decode state is a dict like the reference's,
+with ``blocks`` a list of super-blocks where the reference stacks them.
 
 Parameters live in a ``ParamTree`` (``LM``) whose names follow the
 reference's pytree paths, with ``blocks`` a list of super-blocks where the
@@ -142,14 +149,55 @@ def params_from_jax(cfg: ModelConfig, params: Mapping[str, object],
 
 
 # ---------------------------------------------------------------------------
+# Decode state
+# ---------------------------------------------------------------------------
+
+def _init_substate(cfg: ModelConfig, kind: str, batch: int, s_max: int,
+                   device: torch.device) -> dict:
+    """Decode state of one sub-layer (zeros; prefill overwrites)."""
+    window = cfg.sliding_window if kind == LOCAL else None
+    return attention.init_decode_cache(cfg, batch, s_max, window=window,
+                                       device=device)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, s_max: int,
+                      device: str | torch.device | None = None) -> dict:
+    """The whole decode state on ``device`` (``None``: the card):
+    ``prologue`` sub-layers by name and ``blocks`` a list of super-blocks,
+    each a dict of its sub-layers' caches."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    state: dict = {}
+    if cfg.prologue:
+        state["prologue"] = {
+            f"pro{i}": _init_substate(cfg, kind, batch, s_max, device)
+            for i, kind in enumerate(cfg.prologue)}
+    if cfg.n_superblocks:
+        state["blocks"] = [
+            {f"sub{si}": _init_substate(cfg, kind, batch, s_max, device)
+             for si, kind in enumerate(cfg.layer_pattern)}
+            for _ in range(cfg.n_superblocks)]
+    return state
+
+
+# ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_sublayer(cfg: ModelConfig, kind: str, p, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
+def _apply_sublayer(cfg: ModelConfig, kind: str, p, x: torch.Tensor, *,
+                    mode: str, positions: Optional[torch.Tensor] = None,
+                    pos: Optional[int] = None, state: Optional[dict] = None
+                    ) -> tuple[torch.Tensor, Optional[dict]]:
+    """Returns (x_out, the sub-layer's new state or None)."""
     window = cfg.sliding_window if kind == LOCAL else None
     h = common.norm_apply(cfg, p["norm1"], x)
-    a = attention.self_attention(cfg, p["attn"], h, positions, window=window)
+    if mode == "decode":
+        a, new_state = attention.decode_self_attention(
+            cfg, p["attn"], h, state, pos, window=window)
+    else:
+        a, new_state = attention.self_attention(
+            cfg, p["attn"], h, positions, window=window,
+            return_cache=mode == "prefill")
     if cfg.post_norm:
         a = common.norm_apply(cfg, p["post_norm1"], a)
     x = x + a
@@ -157,7 +205,7 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, p, x: torch.Tensor,
     f = ffn.ffn_apply(cfg, p["mlp"], h)
     if cfg.post_norm:
         f = common.norm_apply(cfg, p["post_norm2"], f)
-    return x + f
+    return x + f, new_state
 
 
 def _embed_in(cfg: ModelConfig, params: LM, tokens: torch.Tensor
@@ -171,36 +219,72 @@ def _embed_in(cfg: ModelConfig, params: LM, tokens: torch.Tensor
     return x
 
 
+_MODES = ("train", "prefill", "decode")
+
+
 def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor, *,
-            mode: str = "train") -> tuple[torch.Tensor, dict, torch.Tensor]:
+            mode: str = "train", states: Optional[dict] = None,
+            pos: Optional[int] = None
+            ) -> tuple[torch.Tensor, dict, torch.Tensor]:
     """Trunk forward.  Returns (hidden (B,S,d), new_states, aux_loss), as
-    the reference does; only ``mode="train"`` is ported (no states)."""
-    if mode != "train":
-        raise NotImplementedError(f"mode {mode!r} is not ported yet "
-                                  f"({_LATER}: prefill and decode)")
+    the reference does.  ``prefill`` returns the decode state of the
+    prompt; ``decode`` takes tokens (B,1) at absolute position ``pos``
+    against ``states``, which it writes in place and returns.  The
+    serving modes run without autograd."""
+    if mode not in _MODES:
+        raise ValueError(f"mode {mode!r} is not one of {_MODES}")
+    with torch.set_grad_enabled(torch.is_grad_enabled() and mode == "train"):
+        return _forward(cfg, params, tokens, mode, states, pos)
+
+
+def _forward(cfg, params, tokens, mode, states, pos):
     x = _embed_in(cfg, params, tokens)
     b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
+    positions = None if mode == "decode" else torch.arange(
+        s, dtype=torch.int32, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, kind in enumerate(cfg.prologue):
-        x = _apply_sublayer(cfg, kind, params["prologue"][f"pro{i}"], x,
-                            positions)
+    new_states: dict = {}
 
-    def superblock(xx, bp):
+    def sub(kind, p, xx, st):
+        return _apply_sublayer(cfg, kind, p, xx, mode=mode,
+                               positions=positions, pos=pos, state=st)
+
+    if cfg.prologue:
+        pro = {}
+        for i, kind in enumerate(cfg.prologue):
+            st = states["prologue"][f"pro{i}"] if states else None
+            x, pro[f"pro{i}"] = sub(kind, params["prologue"][f"pro{i}"], x,
+                                    st)
+        if mode != "train":
+            new_states["prologue"] = pro
+
+    def superblock(xx, bp, bst=None):
+        out = {}
         for si, kind in enumerate(cfg.layer_pattern):
-            xx = _apply_sublayer(cfg, kind, bp[f"sub{si}"], xx, positions)
-        return xx
+            st = bst[f"sub{si}"] if bst is not None else None
+            xx, out[f"sub{si}"] = sub(kind, bp[f"sub{si}"], xx, st)
+        return xx, out
 
-    for bp in (params["blocks"] if cfg.n_superblocks else ()):
-        if cfg.remat and torch.is_grad_enabled():
+    def train_superblock(xx, bp):
+        return superblock(xx, bp)[0]
+
+    blocks = params["blocks"] if cfg.n_superblocks else ()
+    block_states = []
+    for bi, bp in enumerate(blocks):
+        if mode != "train":
+            bst = states["blocks"][bi] if states else None
+            x, out = superblock(x, bp, bst)
+            block_states.append(out)
+        elif cfg.remat and torch.is_grad_enabled():
             # Recompute the super-block in the backward pass, as the
             # reference's jax.checkpoint(nothing_saveable) does: the same
             # numbers, activation memory of one super-block.
-            x = checkpoint(superblock, x, bp, use_reentrant=False)
+            x = checkpoint(train_superblock, x, bp, use_reentrant=False)
         else:
-            x = superblock(x, bp)
-    return x, {}, aux
+            x = train_superblock(x, bp)
+    if mode != "train" and cfg.n_superblocks:
+        new_states["blocks"] = block_states
+    return x, new_states, aux
 
 
 def head_weight(cfg: ModelConfig, params: LM) -> torch.Tensor:
@@ -263,6 +347,31 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Mapping[str, torch.Tensor]
     loss = (w.float() * per_seq).sum() + aux
     metrics = {"ce": per_seq.mean(), "aux": aux, "loss": loss}
     return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def prefill_step(cfg: ModelConfig, params: LM, tokens: torch.Tensor
+                 ) -> tuple[torch.Tensor, dict]:
+    """Process the whole prompt (B,S); return (the last position's logits
+    (B, Vpad), padded columns at -1e9, and the decode states)."""
+    h, states, _ = forward(cfg, params, tokens, mode="prefill")
+    logits = _head_out(cfg, params, h[:, -1:])[:, 0]
+    return mask_padded_logits(cfg, logits), states
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: LM, states: dict,
+                tokens: torch.Tensor, pos: int) -> tuple[torch.Tensor, dict]:
+    """One new token (B,1) at absolute position ``pos`` against the decode
+    state (written in place).  Returns (logits (B, Vpad), the states)."""
+    h, new_states, _ = forward(cfg, params, tokens, mode="decode",
+                               states=states, pos=pos)
+    logits = _head_out(cfg, params, h)[:, 0]
+    return mask_padded_logits(cfg, logits), new_states
 
 
 # ---------------------------------------------------------------------------

@@ -37,3 +37,11 @@ def cosine_with_warmup(lr: float, warmup_steps: int, total_steps: int,
                          / np.float32(max(warmup_steps, 1)))
         return cos(step - warmup_steps)
     return f
+
+
+def exponential_decay(lr: float, decay_steps: int, rate: float = 0.5):
+    """``lr * rate ** (step / decay_steps)``."""
+    def f(step: int) -> float:
+        return float(np.float32(lr) * np.float32(rate) ** (
+            np.float32(step) / np.float32(decay_steps)))
+    return f

@@ -5,12 +5,14 @@ The weighted-subset objective is a first-class input: every train step
 takes ``batch['weights']`` (the OMP output slice, summing to 1).  The loss
 goes through autograd; the proxies come from one forward pass and a fused
 kernel (``lastlayer_grad`` for a classifier, ``hidden_grad`` for an LM
-head), with no backprop through the trunk.
+head), with no backprop through the trunk.  LM steps take micro-batch
+accumulation and, opt-in, EF-TopK gradient compression before the
+optimizer (``train/compression.py``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -18,6 +20,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import proxies as proxy_lib
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.classifier import ClassifierNet, classifier_loss
+from repro_torch.train import compression as comp_lib
 
 
 def make_classifier_step(model: ClassifierNet,
@@ -99,6 +102,80 @@ def lm_train_step_fn(cfg: ModelConfig, model: lm_lib.LM,
                     p.grad = None
             opt.step(grads=acc)
         return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def reference_leaves(names) -> dict[str, list[str]]:
+    """The reference's pytree leaf of each parameter name, in the order
+    of ``names``: ``blocks.3.sub0.attn.wq`` is row 3 of the leaf
+    ``blocks.sub0.attn.wq``, which the reference stacks over the
+    super-blocks; any other name is a leaf of its own."""
+    leaves: dict[str, list[str]] = {}
+    for name in names:
+        parts = name.split(".")
+        key = (".".join([parts[0]] + parts[2:]) if parts[0] == "blocks"
+               else name)
+        leaves.setdefault(key, []).append(name)
+    return leaves
+
+
+def _stacked(named: dict, leaves: dict) -> dict:
+    """Each reference leaf of ``named``: the block rows stacked on a
+    leading super-block axis, the other leaves as they are."""
+    return {key: (torch.stack([named[n] for n in names])
+                  if key.startswith("blocks.") else named[names[0]])
+            for key, names in leaves.items()}
+
+
+def _unstacked(tree: dict, leaves: dict) -> dict:
+    """``_stacked``'s inverse: each parameter name's row of its leaf."""
+    out = {}
+    for key, names in leaves.items():
+        rows = (tree[key].unbind(0) if key.startswith("blocks.")
+                else (tree[key],))
+        out.update(zip(names, rows))
+    return out
+
+
+def init_compression_state(model: lm_lib.LM) -> comp_lib.CompressionState:
+    """Zero EF-TopK residuals for ``model``, one f32 tensor a reference
+    leaf (block leaves stacked over the super-blocks), on its device."""
+    named = dict(model.named_parameters())
+    return comp_lib.init_state(_stacked(
+        {n: p.detach() for n, p in named.items()},
+        reference_leaves(named)))
+
+
+def make_lm_train_step(cfg: ModelConfig, model: lm_lib.LM,
+                       opt: torch.optim.Optimizer, microbatches: int = 1,
+                       compress_frac: Optional[float] = None) -> Callable:
+    """The LM train step; see ``lm_train_step_fn``.
+
+    With ``compress_frac`` it is ``step(batch, comp_state) -> (metrics,
+    comp_state)``, starting from ``init_compression_state(model)``: the
+    gradients go through ``compression.compress_with_feedback`` before the
+    optimizer.  The reference compresses each leaf of its pytree, so a
+    block parameter's top k is taken over its leaf stacked over all
+    super-blocks, not a super-block at a time; the port stacks them the
+    same way.  As in the reference, this form takes one full-batch
+    gradient whatever ``microbatches`` is.
+    """
+    if compress_frac is None:
+        return lm_train_step_fn(cfg, model, opt, microbatches)
+    params = dict(model.named_parameters())
+    leaves = reference_leaves(params)
+
+    def step(batch: dict, comp_state: comp_lib.CompressionState):
+        opt.zero_grad(set_to_none=True)
+        loss, metrics = lm_lib.lm_loss(cfg, model, batch)
+        loss.backward()
+        grads = _stacked({n: p.grad for n, p in params.items()}, leaves)
+        dense, comp_state = comp_lib.compress_with_feedback(
+            grads, comp_state, compress_frac)
+        opt.step(grads={params[n]: g
+                        for n, g in _unstacked(dense, leaves).items()})
+        return {k: v.detach() for k, v in metrics.items()}, comp_state
 
     return step
 

@@ -59,7 +59,10 @@ def test_port_files_exist():
                  "src/repro_torch/serve/service.py",
                  "src/repro_torch/serve/loadgen.py",
                  "src/repro_torch/launch/build_artifacts.py",
-                 "src/repro_torch/launch/serve_selection.py"):
+                 "src/repro_torch/launch/serve_selection.py",
+                 "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/train/compression.py",
+                 "src/repro_torch/optim/optimizers.py"):
         assert must in names
 
 
@@ -86,6 +89,8 @@ def test_trainer_import_loads_no_jax():
             "import repro_torch.serve, repro_torch.artifacts; "
             "import repro_torch.launch.serve_selection; "
             "import repro_torch.launch.build_artifacts; "
+            "import repro_torch.launch.serve, repro_torch.optim; "
+            "import repro_torch.train.compression; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('ok')")
@@ -214,6 +219,43 @@ def test_lm_driver_refuses_the_cpu_without_being_asked():
                       "--micro-batch", "1", "--seq-len", "4", "--device",
                       "cpu"])
     assert rep["device"] == "cpu"
+
+
+def test_lm_serving_refuses_the_cpu_without_being_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, lm
+
+    cfg = get_smoke_config("gemma2-9b")
+    argv = ["--smoke", "--requests", "1", "--batch", "1", "--prompt-len",
+            "4", "--gen-len", "1"]
+    for call in (lambda: serve.main(argv),
+                 lambda: lm.init_decode_state(cfg, 1, 8),
+                 lambda: attention.init_decode_cache(cfg, 1, 8, window=4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # asked for explicitly, the CPU is fine
+    assert serve.main(argv + ["--device", "cpu"])["tokens"] == 1
+
+
+def test_optimizer_and_compression_state_follow_the_parameters():
+    """AdamW's slots and the EF-TopK residuals live where the parameters
+    do (here the meta device: no memory), never on a quiet CPU copy."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import init_compression_state
+
+    model = lm.init_lm(get_smoke_config("gemma-2b"), device="meta")
+    opt = adamw(model.parameters(), 1e-3)
+    opt.step(grads={p: torch.ones_like(p) for p in model.parameters()})
+    for p in model.parameters():
+        assert opt.state[p]["m"].device.type == "meta"
+        assert opt.state[p]["v"].device.type == "meta"
+    state = init_compression_state(model)
+    assert {r.device.type for r in state.residual.values()} == {"meta"}
 
 
 def test_serving_entry_points_refuse_the_cpu_without_being_asked(tmp_path):

@@ -288,14 +288,6 @@ def test_unported_archs_raise_naming_the_roadmap_item(arch):
         lm.init_lm(get_smoke_config(arch), device="cpu")
 
 
-def test_serving_modes_raise_naming_the_roadmap_item():
-    _, _, tcfg, model = _pair("gemma-2b")
-    _, tb = _batch(tcfg)
-    for mode in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="The rest of the LM side"):
-            lm.forward(tcfg, model, tb["tokens"], mode=mode)
-
-
 def test_cosine_with_warmup_matches_jax():
     """The driver's schedule (lr 3e-3, 10 warmup steps, 100 steps) and an
     uneven one, step by step, to two f32 roundings (numpy's and XLA's
