@@ -64,9 +64,10 @@ Phases, one JSON line each:
   8. stream   streaming GRAD-MATCH (``gradmatch-stream``) at the same data
               and widths: trained end to end through ``AdaptiveTrainer``
               (bias proxies extracted a chunk of 1 024 at a time, buffer
-              256, 256 MiB cache, one selection: R = 2), the selection's
-              first 1 024 picks held index-exact against in-memory pooled
-              OMP on the proxies and target the streaming pass saw; then one
+              256, 256 MiB cache, budget 0.05, one selection: R = 2), the
+              selection's first 1 024 picks held index-exact against
+              in-memory pooled OMP on the proxies and target the streaming
+              pass saw; then one
               pooled per-gradient selection (45 000, 65) at k 1 024 with
               the kernels, with the plain versions, and
               with the plain versions scoring at the pool's shape, each
@@ -77,11 +78,11 @@ Phases, one JSON line each:
               chunks' bound and the sketch of the others, loader passes);
               and fetched proxy rows bit-equal to the scanned ones;
   9. lm       the LM training driver (``repro_torch.launch.train.main``) at
-              its defaults on gemma-2b at full width and depth (2 506 172 416
-              parameters, bf16, 100 steps, GRAD-MATCHPB over a window of 16
-              micro-batches of 4 x 128 tokens every 20 steps): every
+              its defaults but 40 steps on gemma-2b at full width and depth
+              (2 506 172 416 parameters, bf16, GRAD-MATCHPB over a window
+              of 16 micro-batches of 4 x 128 tokens every 20 steps): every
               selection proxy through the tensor-core ``hidden_grad_tc``
-              (80 launches, none of the FFMA ``hidden_grad``), OMP through
+              (32 launches, none of the FFMA ``hidden_grad``), OMP through
               ``corr`` and ``corr_argmax``.  Then both head kernels against
               the plain version on a real candidate's logits, targets and
               tied embedding (the same bits on two calls) and on ragged
@@ -181,6 +182,33 @@ Phases, one JSON line each:
               super-blocks) with ``dense + residual == acc`` bit for bit, k
               entries kept, and the kept set the first k of a stable
               descending sort of |acc|.  No kernel on these paths either;
+ 15. lm_moe   (after ``lm_optim``) the LM driver (40 steps) on
+              qwen3-moe-30b-a3b at its published widths (128 experts,
+              top-8, expert d_ff 768, vocab 151 936) cut to 4 layers:
+              ``hidden_grad_tc`` 32 launches on the untied head, none of
+              the FFMA kernel, ``corr`` / ``corr_argmax``; the head kernel
+              against its plain version on a real candidate (1e-4 of max
+              |out|, the same bits twice), timed against its bound; one
+              selection with the kernels and one with the plain versions
+              (the same picks); two weighted SGD steps from the same start
+              repeated, the same bits in the losses and every parameter;
+              the share of layer 0's assignments dropped at capacity.
+              Then ``launch/serve.main`` at its defaults on qwen3-moe at
+              full width and depth (48 layers, 30.5 B parameters), decode
+              against the train-mode forward (batch 4, 32 -> 48, capacity
+              opened to E / k) within 2e-2 of max |logit| and each greedy
+              token against the forward's argmax, and moonshot-v1-16b-a3b
+              at full width cut to 2 layers, the same decode check;
+ 16. lm_hybrid (after ``lm_moe``) the same driver checks on zamba2-7b at
+              its published widths (d 3 584, 112 SSD heads, d_state 64,
+              chunk 256, vocab 32 000) cut to its 3 prologue layers and
+              one super-block (5 Mamba2 + the shared block), then at full
+              depth (81 layers) ``serve.main`` at its defaults and decode
+              against the forward at batch 2, 32 -> 48 and 512 -> 528 (two
+              SSD chunks; the forward over 528 tokens at chunk 176) within
+              5e-2 of max |logit|, every super-block's shared-block cache
+              written by decode; at f32, cut as the driver is, within
+              1e-5.  The serving paths of both phases reach no kernel;
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -207,6 +235,7 @@ need.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -257,6 +286,9 @@ PARTIAL_SLOTS = 32        # the partial cache's chunk slots (44 chunks)
 PARTIAL_K = 128           # rounds of the partial-cache selection (cut
                           # from 256: one 128-round block)
 STREAM_CHECK_K = 1024     # rounds of the streaming vs in-memory checks
+STREAM_BUDGET = 0.05      # the trained gradmatch-stream's budget (cut from
+STREAM_K = int(ROWS * STREAM_BUDGET)     # 0.1 in PR 25: its selection's
+#                                          rounds, 4 500 -> 2 250)
 LOOP_K = 1280             # budget of the batched-engine vs loop check
 CRAIG_PATHS = ("craig-lazy", "craig-lazy-otf", "craig-stochastic",
                "craig-pb", "glister", "craig-resident")
@@ -335,7 +367,7 @@ MAIN_PATH = {"corr": "gradmatch-pb", "corr_argmax": "gradmatch-pb",
 
 
 # The LM phase: the driver's defaults on gemma-2b at full size.
-LM_ARGV = ["--arch", "gemma-2b"]
+LM_ARGV = ["--arch", "gemma-2b", "--steps", "40"]   # cut from 100 steps
 LM_PARAMS = 2_506_172_416           # gemma-2b's parameters (tied head)
 LM_HG_LIMIT = 1e-4                  # hidden_grad vs plain, of max |out|
 LM_TRACE_STEPS = 3                  # steps timed part by part
@@ -355,6 +387,26 @@ OPTIM_LR = 1e-3                     # exponential_decay(1e-3, 2)
 OPTIM_LEAVES = ("embed", "blocks.0.sub0.attn.wq", "blocks.1.sub0.norm2.scale")
 OPTIM_FRAC = 0.01                   # EF-TopK's fraction kept
 OPTIM_COMPRESSED_STEPS = 2
+# lm_moe: qwen3-moe-30b-a3b at its published widths (d 2 048, 128 experts,
+# top-8, expert d_ff 768, vocab 151 936), the driver's depth cut to 4
+# layers; served at full depth (48 layers); moonshot-v1-16b-a3b at full
+# width cut to 2 layers.
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_ARGV = ["--arch", MOE_ARCH, "--steps", "40"]
+MOE_TRAIN_LAYERS = 4
+MOE_SERVE_LAYERS = 48
+MOONSHOT_LAYERS = 2
+# lm_hybrid: zamba2-7b at its published widths (d 3 584, d_inner 7 168, 112
+# SSD heads, d_state 64, chunk 256, vocab 32 000), the driver's depth cut
+# to the 3 prologue layers and one super-block (5 Mamba2 + the shared
+# block); served at full depth (81 layers).
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_ARGV = ["--arch", HYBRID_ARCH, "--steps", "40"]
+HYBRID_TRAIN_SUPERBLOCKS = 1
+HYBRID_BATCH = 2
+HYBRID_LONG_PROMPT = 512            # two SSD chunks of 256
+HYBRID_LONG_CHUNK = 176             # the forward's chunk at 528 = 3 x 176
+HYBRID_BF16_LIMIT = 5e-2            # the reference's decode test's limit
 
 
 def emit(phase: str, **kw) -> None:
@@ -2326,7 +2378,7 @@ def phase_stream(torch, np, train, val) -> dict:
 
     # 1. gradmatch-stream trained end to end (bias proxies, chunk 1 024),
     # one selection (R = 2)
-    tcfg = TrainerConfig(strategy="gradmatch-stream", budget=BUDGET,
+    tcfg = TrainerConfig(strategy="gradmatch-stream", budget=STREAM_BUDGET,
                          epochs=2, batch_size=BATCH,
                          hp=PaperHParams(select_every=2), eval_every=1)
     trainer = AdaptiveTrainer(mlp(), tcfg, train, val)
@@ -2365,7 +2417,8 @@ def phase_stream(torch, np, train, val) -> dict:
     mem_s = time.perf_counter() - t0
     first = sels[0][0]
     part = first_part(first.indices[:STREAM_CHECK_K], idx)
-    emit("stream", path="gradmatch-stream", rows=train.n, budget=BUDGET,
+    emit("stream", path="gradmatch-stream", rows=train.n,
+         budget=STREAM_BUDGET,
          epochs=2, select_every=2, selection_rounds=rep.selection_rounds,
          selection_seconds=[dt for _, dt in sels],
          in_memory_k=STREAM_CHECK_K, in_memory_pooled_seconds=mem_s,
@@ -2380,9 +2433,10 @@ def phase_stream(torch, np, train, val) -> dict:
              train.y[first.indices[first.mask].long()], minlength=10
          ).tolist())
     check(rep.selection_rounds == 1, "expected one selection round")
-    check(rep.subset_size == K, f"gradmatch-stream kept {rep.subset_size}")
+    check(rep.subset_size == STREAM_K, f"gradmatch-stream kept "
+          f"{rep.subset_size}")
     for sel, _ in sels:
-        check_sel(sel, "gradmatch-stream")
+        check_sel(sel, "gradmatch-stream", STREAM_K)
     # Pooled selection over the bias proxies does not balance the classes
     # as the per-class solve does: 0.219 after 2 epochs in the first run
     # (chance is 0.1), against 0.514 per class.
@@ -4069,23 +4123,98 @@ def lm_step_parts(torch, cfg, model, stream, args, proxy_fn) -> dict:
                 top_device_us={name[:90]: us for name, us in top})
 
 
+def lm_select_and_omp(torch, card: dict, records: dict, phase: str,
+                      path: str, proxy_fn, stream, args,
+                      last_round: int) -> None:
+    """One selection with the kernels and one with the plain versions on
+    the last window's candidates (the same picks, weights to rtol 1e-4 /
+    atol 1e-5); then ``corr`` and ``corr_argmax`` against their plain
+    versions at the shapes the path gave them, timed: the records of
+    ``path``."""
+    from repro_torch.core import gradmatch as gm_lib
+    from repro_torch.kernels import corr as corr_k
+    from repro_torch.kernels import ops, ref
+
+    dev = stream.device
+    bw, flops = peaks(card["name"])
+    k_batches = max(int(args.window * args.budget), 1)
+    sels = {}
+    for mode in ("kernels", "plain"):
+        ops.set_backend("ref" if mode == "plain" else None)
+        try:
+            px = torch.stack([proxy_fn(stream.batch(last_round, s)).mean(0)
+                              for s in range(args.window)])
+            sels[mode] = (px, gm_lib.gradmatch(px, k_batches, lam=args.lam))
+        finally:
+            ops.set_backend(None)
+    (pk, sk), (pp, sp) = sels["kernels"], sels["plain"]
+    ik, ip = sk.indices[sk.mask].tolist(), sp.indices[sp.mask].tolist()
+    wk, wp = sk.weights[sk.mask], sp.weights[sp.mask]
+    proxy_err = float((pk - pp).abs().max()) / float(pp.abs().max())
+    same = ik == ip
+    emit(phase, path=f"{path}-select", candidates=args.window, k=k_batches,
+         picks_kernels=ik, picks_plain=ip, weights_kernels=wk.tolist(),
+         weights_plain=wp.tolist(), err_kernels=float(sk.err),
+         err_plain=float(sp.err), proxy_rel_err=proxy_err)
+    check(same, f"{path} selection: kernels picked {ik}, plain versions "
+          f"{ip}")
+    check(torch.allclose(wk, wp, rtol=1e-4, atol=1e-5),
+          f"{path} selection weights {wk.tolist()} vs {wp.tolist()}")
+
+    # corr and corr_argmax at the shapes the path gave them: c0 and each
+    # new column over the (window, d_model) proxies, the argmax over the
+    # (window, k) column cache of the wide regime.
+
+    def record(name, fn, pfn, shape, nbytes, nops, err, lib=None):
+        by_b, by_o = nbytes / bw * 1e3, nops / flops * 1e3
+        records[name][path] = dict(
+            max_abs_err=err, ms=device_ms(torch, fn),
+            plain_ms=device_ms(torch, pfn),
+            library_ms=None if lib is None else device_ms(torch, lib),
+            bound_ms=max(by_b, by_o),
+            bound_by="bytes" if by_b >= by_o else "operations", shape=shape)
+        emit("kernels", kernel=name, path=path, **records[name][path])
+
+    r = pk.sum(0)
+    got_c, want_c = corr_k.corr(pk, r), ref.corr_ref(pk, r)
+    err_c = float((got_c - want_c).abs().max())
+    check(err_c <= 1e-5 * float(want_c.abs().max()), f"corr on the {path} "
+          f"proxies: max err {err_c}")
+    record("corr", lambda: corr_k.corr(pk, r), lambda: ref.corr_ref(pk, r),
+           list(pk.shape), 4 * pk.numel() + 4 * pk.shape[1]
+           + 4 * pk.shape[0], 2 * pk.numel(), err_c,
+           lib=lambda: torch.mv(pk, r))
+    cc = torch.randn((args.window, k_batches), device=dev)
+    cw = torch.randn((k_batches,), device=dev)
+    base = torch.randn((args.window,), device=dev)
+    avail = torch.ones((args.window,), dtype=torch.bool, device=dev)
+    gi, gv = corr_k.corr_argmax(cc, cw, base, avail)
+    ri, rv = ref.corr_argmax_ref(cc, cw, base, avail)
+    check(int(gi) == int(ri) and abs(float(gv) - float(rv))
+          <= 1e-5 * abs(float(rv)) + 1e-6, f"corr_argmax on the {path} "
+          f"column cache: ({int(gi)}, {float(gv)}) vs ({int(ri)}, "
+          f"{float(rv)})")
+    record("corr_argmax", lambda: corr_k.corr_argmax(cc, cw, base, avail),
+           lambda: ref.corr_argmax_ref(cc, cw, base, avail), list(cc.shape),
+           4 * cc.numel() + 4 * k_batches + 5 * args.window + 8,
+           2 * cc.numel(), abs(float(gv) - float(rv)))
+
+
 def phase_lm(torch, np, card: dict, records: dict) -> dict:
-    """The LM training driver at its defaults on gemma-2b (full width and
-    depth), the launch counts set to 0 just before ``main`` and read just
-    after; then, on the trained parameters, the head kernels against the
-    plain version on a real candidate, one selection with the kernels and
-    one with the plain versions, and the timings.  Adds the records of
-    ``hidden_grad_tc``, ``hidden_grad`` (the FFMA kernel at the path's
-    shape, which the path no longer launches) and of ``corr`` /
-    ``corr_argmax`` at the path's shapes."""
+    """The LM training driver at its defaults but 40 steps on gemma-2b
+    (full width and depth), the launch counts set to 0 just before
+    ``main`` and read just after; then, on the trained parameters, the
+    head kernels against the plain version on a real candidate, one
+    selection with the kernels and one with the plain versions, and the
+    timings.  Adds the records of ``hidden_grad_tc``, ``hidden_grad``
+    (the FFMA kernel at the path's shape, which the path no longer
+    launches) and of ``corr`` / ``corr_argmax`` at the path's shapes."""
     import gc
 
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.core import gradmatch as gm_lib
     from repro_torch.data.tokens import TokenStream
-    from repro_torch.kernels import corr as corr_k
     from repro_torch.kernels import lastlayer_grad as llg_k
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.launch import train
     from repro_torch.models import lm
     from repro_torch.train.steps import make_lm_proxy_step
@@ -4093,49 +4222,16 @@ def phase_lm(torch, np, card: dict, records: dict) -> dict:
     args = train.build_argparser().parse_args(LM_ARGV)
     dev = torch.device(args.device or "cuda")
     bw, flops = peaks(card["name"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    resident_before = torch.cuda.memory_allocated()
 
     # 1. the driver, through main; the model seam holds the very model
     # main would build from --seed, so the checks below see its weights.
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    model = lm.init_lm(cfg, gen, dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    rep = train.main(LM_ARGV, model=model)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = {"lm": ops.launch_counts()}
-    shapes = {"lm": ops.launch_shapes()}
-    peak = torch.cuda.max_memory_allocated()
-    n_sel = -(-args.steps // args.select_every)
-    emit("lm", path="lm", arch=args.arch, params=rep["params"],
-         steps=rep["steps"], micro_batch=args.micro_batch,
-         seq_len=args.seq_len, window=args.window, selections=n_sel,
-         wall_seconds=rep["wall_s"], selection_seconds=rep["selection_s"],
-         main_seconds=seconds, loss_first=rep["loss_first"],
-         loss_last=rep["loss_last"], peak_gb=peak / 1e9,
-         resident_before_gb=resident_before / 1e9, launches=counts["lm"],
-         picks=rep["selections"])
+    drv = lm_driver(torch, np, "lm", "lm", cfg, LM_ARGV)
+    model, rep = drv["model"], drv["rep"]
+    counts, shapes = drv["run"]["counts"], drv["run"]["shapes"]
+    del drv
     check(rep["params"] == LM_PARAMS, f"{args.arch} has {rep['params']} "
           f"parameters, not {LM_PARAMS}")
-    check(all(np.isfinite(rep["losses"])), "an LM step's loss is not finite")
-    check(counts["lm"]["hidden_grad_tc"] == args.window * n_sel,
-          f"hidden_grad_tc launched {counts['lm']['hidden_grad_tc']} times, "
-          f"not {args.window * n_sel}")
-    check(counts["lm"]["hidden_grad"] == 0, f"the FFMA hidden_grad launched "
-          f"{counts['lm']['hidden_grad']} times on the lm path")
-    for name in ("corr", "corr_argmax"):
-        check(counts["lm"][name] > 0, f"kernel {name} was not launched on "
-              "the lm path")
-    for sel in rep["selections"]:
-        check(len(sel["indices"]) > 0 and abs(sum(sel["weights"]) - 1)
-              < 1e-4, f"selection {sel} is empty or its weights do not sum "
-              "to 1")
 
     # 2. hidden_grad against its plain version on a real candidate: the
     # last window's first micro-batch, its logits from the trained model.
@@ -4247,67 +4343,11 @@ def phase_lm(torch, np, card: dict, records: dict) -> dict:
         library_bf16_hi_ms=lib_bf16_ms)
 
     # 4. one selection with the kernels and one with the plain versions on
-    # the trained parameters: the last window's candidates.
+    # the trained parameters: the last window's candidates; corr and
+    # corr_argmax at the path's shapes.
     proxy_fn = make_lm_proxy_step(cfg, model)
-    k_batches = max(int(args.window * args.budget), 1)
-    sels = {}
-    for mode in ("kernels", "plain"):
-        ops.set_backend("ref" if mode == "plain" else None)
-        try:
-            px = torch.stack([proxy_fn(stream.batch(last_round, s)).mean(0)
-                              for s in range(args.window)])
-            sels[mode] = (px, gm_lib.gradmatch(px, k_batches, lam=args.lam))
-        finally:
-            ops.set_backend(None)
-    (pk, sk), (pp, sp) = sels["kernels"], sels["plain"]
-    ik, ip = sk.indices[sk.mask].tolist(), sp.indices[sp.mask].tolist()
-    wk, wp = sk.weights[sk.mask], sp.weights[sp.mask]
-    proxy_err = float((pk - pp).abs().max()) / float(pp.abs().max())
-    same = ik == ip
-    emit("lm", path="lm-select", candidates=args.window, k=k_batches,
-         picks_kernels=ik, picks_plain=ip, weights_kernels=wk.tolist(),
-         weights_plain=wp.tolist(), err_kernels=float(sk.err),
-         err_plain=float(sp.err), proxy_rel_err=proxy_err)
-    check(same, f"lm selection: kernels picked {ik}, plain versions {ip}")
-    check(torch.allclose(wk, wp, rtol=1e-4, atol=1e-5),
-          f"lm selection weights {wk.tolist()} vs {wp.tolist()}")
-
-    # corr and corr_argmax at the shapes the path gave them: c0 and each
-    # new column over the (16, 2 048) proxies, the argmax over the (16, k)
-    # column cache of the wide regime.
-
-    def record(name, fn, pfn, shape, nbytes, nops, err, lib=None):
-        by_b, by_o = nbytes / bw * 1e3, nops / flops * 1e3
-        records[name]["lm"] = dict(
-            max_abs_err=err, ms=device_ms(torch, fn),
-            plain_ms=device_ms(torch, pfn),
-            library_ms=None if lib is None else device_ms(torch, lib),
-            bound_ms=max(by_b, by_o),
-            bound_by="bytes" if by_b >= by_o else "operations", shape=shape)
-        emit("kernels", kernel=name, path="lm", **records[name]["lm"])
-
-    r = pk.sum(0)
-    got_c, want_c = corr_k.corr(pk, r), ref.corr_ref(pk, r)
-    err_c = float((got_c - want_c).abs().max())
-    check(err_c <= 1e-5 * float(want_c.abs().max()), f"corr on the lm "
-          f"proxies: max err {err_c}")
-    record("corr", lambda: corr_k.corr(pk, r), lambda: ref.corr_ref(pk, r),
-           list(pk.shape), 4 * pk.numel() + 4 * pk.shape[1]
-           + 4 * pk.shape[0], 2 * pk.numel(), err_c,
-           lib=lambda: torch.mv(pk, r))
-    cc = torch.randn((args.window, k_batches), device=dev)
-    cw = torch.randn((k_batches,), device=dev)
-    base = torch.randn((args.window,), device=dev)
-    avail = torch.ones((args.window,), dtype=torch.bool, device=dev)
-    gi, gv = corr_k.corr_argmax(cc, cw, base, avail)
-    ri, rv = ref.corr_argmax_ref(cc, cw, base, avail)
-    check(int(gi) == int(ri) and abs(float(gv) - float(rv))
-          <= 1e-5 * abs(float(rv)) + 1e-6, f"corr_argmax on the lm column "
-          f"cache: ({int(gi)}, {float(gv)}) vs ({int(ri)}, {float(rv)})")
-    record("corr_argmax", lambda: corr_k.corr_argmax(cc, cw, base, avail),
-           lambda: ref.corr_argmax_ref(cc, cw, base, avail), list(cc.shape),
-           4 * cc.numel() + 4 * k_batches + 5 * args.window + 8,
-           2 * cc.numel(), abs(float(gv) - float(rv)))
+    lm_select_and_omp(torch, card, records, "lm", "lm", proxy_fn, stream,
+                      args, last_round)
     # 5. where a step's time goes: each part of the driver's loop timed
     # between syncs over LM_TRACE_STEPS steps after one warm-up step
     # (medians), then one step and one candidate's proxy pass under
@@ -4321,12 +4361,15 @@ def phase_lm(torch, np, card: dict, records: dict) -> dict:
             "selection_seconds": {"lm": rep["selection_s"]}, "model": model}
 
 
-def teacher_forced(torch, cfg, model, tok, s0: int):
+def teacher_forced(torch, cfg, model, tok, s0: int, fwd_cfg=None,
+                   state_check=None):
     """Prefill ``tok[:, :s0]``, seat it into ``tok.shape[1]`` slots and
     decode the rest of ``tok`` a token at a time; and the train-mode
-    forward over all of ``tok``.  Returns both packages' logits over the
-    real vocabulary at positions s0 - 1 .. S - 1, f32, (B, S - s0 + 1, V)
-    each."""
+    forward over all of ``tok`` (under ``fwd_cfg`` where given: another
+    SSD chunk, for a length the config's chunk does not divide).  Returns
+    both packages' logits over the real vocabulary at positions s0 - 1 ..
+    S - 1, f32, (B, S - s0 + 1, V) each; ``state_check`` sees the decode
+    state after the last step."""
     from repro_torch.launch.serve import _seat
     from repro_torch.models import lm
 
@@ -4341,35 +4384,241 @@ def teacher_forced(torch, cfg, model, tok, s0: int):
             logits, state = lm.decode_step(cfg, model, state,
                                            tok[:, t:t + 1], t)
             dec.append(logits[:, :v].float())
+        if state_check is not None:
+            state_check(state)
         del state
-        h, _, _ = lm.forward(cfg, model, tok)
-        fwd = lm.mask_padded_logits(cfg, lm._head_out(cfg, model,
-                                                      h[:, s0 - 1:]))
+        fcfg = fwd_cfg or cfg
+        h, _, _ = lm.forward(fcfg, model, tok)
+        fwd = lm.mask_padded_logits(fcfg, lm._head_out(fcfg, model,
+                                                       h[:, s0 - 1:]))
     return torch.stack(dec, dim=1), fwd[..., :v].float()
 
 
+class RouteRecorder:
+    """While active, records the top-k expert ids of every
+    ``moe._route`` call, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.route, self.calls = moe, moe._route, []
+
+        def recording(cfg, w, x):
+            out = self.route(cfg, w, x)
+            self.calls.append(out[0].detach())
+            return out
+
+        moe._route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+
+class RouteReplayer:
+    """While active, ``moe._route`` sends each token to the experts that
+    ``plan`` gives (an (G, T, k) id tensor a call, in call order), with
+    weights from its own router's probabilities at those ids,
+    renormalized as ``_route`` does; the aux loss is ``_route``'s own."""
+
+    def __init__(self, plan):
+        self.plan = iter(plan)
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+        self.moe, self.route = moe, moe._route
+
+        def replaying(cfg, w, x):
+            _, _, aux = self.route(cfg, w, x)
+            ids = next(self.plan)
+            top_w = torch.softmax(x.float() @ w, dim=-1).gather(-1, ids)
+            top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True),
+                                            1e-9)
+            return ids, top_w.to(x.dtype), aux
+
+        moe._route = replaying
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+
+def moe_layers(cfg) -> int:
+    from repro_torch.configs.base import ATTN_LIKE
+    return sum(k in ATTN_LIKE for k in cfg.layer_types_in_order())
+
+
+def routes_parted(torch, cfg, calls, b: int, s0: int, s: int):
+    """From the routes of a prefill of ``s0`` tokens, ``s - s0`` decode
+    steps and a train-mode forward over ``s`` tokens (one call a MoE layer
+    each), the (B, S) mask of the positions whose sequence was routed
+    otherwise by decode than by the forward (another expert set for some
+    token at or before that position, in some layer: its hidden states
+    then part by more than rounding) and the count of such (layer, token)
+    partings."""
+    layers = moe_layers(cfg)
+    steps = s - s0
+    check(len(calls) == layers * (2 + steps), f"{len(calls)} route calls, "
+          f"not {layers * (2 + steps)}")
+    pre, dec, fwd = (calls[:layers], calls[layers:-layers],
+                     calls[-layers:])
+    parted = torch.zeros((b, s), dtype=torch.bool, device=fwd[0].device)
+    n = 0
+    for li in range(layers):
+        ids = torch.cat([pre[li]] + [dec[i * layers + li].reshape(b, 1, -1)
+                                     for i in range(steps)], dim=1)
+        diff = (ids.sort(-1).values != fwd[li].sort(-1).values).any(-1)
+        n += int(diff.sum())
+        parted |= diff
+    return parted.cumsum(1) > 0, n
+
+
 def decode_vs_forward(torch, cfg, model, tok, s0: int, limit: float,
-                      what: str) -> dict:
+                      what: str, phase: str = "lm_serve", fwd_cfg=None,
+                      state_check=None) -> dict:
     """``teacher_forced``'s two sets of logits: the largest difference
-    relative to the forward's largest |logit|, held to ``limit``."""
+    relative to the forward's largest |logit|, held to ``limit``.
+
+    For a MoE config the rounding of a bf16 run can flip a router's near
+    tie, and the token then goes to another expert: a discrete step, not
+    rounding.  So decode runs twice.  Routed by its own router, the rows
+    whose sequence it routed as the forward did (no (layer, token) parted
+    at or before the row) are held to ``limit``, and the partings, the
+    rows they reach and the error over all rows are reported.  Then
+    routed to the forward's experts (``RouteReplayer``; the weights from
+    its own probabilities), every row is held to ``limit``."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    dec, fwd = teacher_forced(torch, cfg, model, tok, s0)
+    with RouteRecorder() as rec:
+        dec, fwd = teacher_forced(torch, cfg, model, tok, s0, fwd_cfg,
+                                  state_check)
     torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     scale = float(fwd.abs().max())
-    err = float((dec - fwd).abs().max()) / scale
+    row_err = (dec - fwd).abs().amax(-1) / scale           # (B, S - s0 + 1)
+    held = torch.ones_like(row_err, dtype=torch.bool)
+    extra = {}
+    if cfg.uses_moe:
+        b, s = tok.shape
+        layers = moe_layers(cfg)
+        parted, n = routes_parted(torch, cfg, rec.calls, b, s0, s)
+        held = ~parted[:, s0 - 1:]
+        fwd_ids = rec.calls[-layers:]                       # (B, S, k) each
+        plan = ([r[:, :s0] for r in fwd_ids]
+                + [r[:, t][None] for t in range(s0, s) for r in fwd_ids]
+                + fwd_ids)
+        with RouteReplayer(plan):
+            dec_r, fwd_r = teacher_forced(torch, cfg, model, tok, s0)
+        check(torch.equal(fwd_r, fwd), f"{what}: the forward on its own "
+              "routes gave other logits")
+        err_r = float((dec_r - fwd).abs().max()) / scale
+        extra = dict(route_partings=n, routed_tokens=layers * b * s,
+                     rows=held.numel(),
+                     rows_routed_otherwise=int((~held).sum()),
+                     rel_err_all_rows=float(row_err.max()),
+                     rel_err_forward_routes=err_r,
+                     argmax_equal_forward_routes=float(
+                         (dec_r.argmax(-1) == fwd.argmax(-1)).float()
+                         .mean()))
+        del dec_r, fwd_r
+    err = float(row_err[held].max()) if bool(held.any()) else 0.0
     finite = bool(torch.isfinite(dec).all())
     out = dict(what=what, batch=tok.shape[0], prompt=s0, s_max=tok.shape[1],
                dtype=cfg.param_dtype, layers=cfg.n_layers, rel_err=err,
                limit=limit, max_abs_logit=scale,
                argmax_equal=float((dec.argmax(-1) == fwd.argmax(-1)).float()
-                                  .mean()),
-               seconds=time.perf_counter() - t0)
-    emit("lm_serve", **out)
+                                  .mean()), **extra, seconds=seconds)
+    emit(phase, **out)
     check(finite, f"{what}: decode logits not finite")
     check(err <= limit, f"{what}: decode vs forward {err} of max |logit| "
           f"(limit {limit})")
+    if cfg.uses_moe:
+        check(extra["rel_err_forward_routes"] <= limit, f"{what}: decode "
+              f"on the forward's routes vs forward "
+              f"{extra['rel_err_forward_routes']} of max |logit| (limit "
+              f"{limit})")
     return out
+
+
+def decode_vs_f32(torch, cfg, model, cfg32, model32, tok, s0: int,
+                  limit: float, what: str, phase: str, chunk: int,
+                  state_check=None) -> dict:
+    """bf16 decode against the bf16 forward (``teacher_forced``, the
+    forward at SSD chunk ``chunk``), and both against the forward of the
+    same weights at f32 (``model32``).  Rounding makes the two bf16 runs
+    part by more with depth (zamba2: 1.5e-2 of max |logit| at 9 layers,
+    6.4e-2 at 81; at f32 4.7e-6 and 1.7e-5; ``tools/lm_decode_probe.py
+    --depth`` on an NVIDIA H100 80GB HBM3 at 700 W).  So decode is held to
+    be as close to the f32 forward as the bf16 forward is: within
+    ``limit`` of max |logit|, or 1.25x the forward's own distance where
+    that is wider.  Its distance from the bf16 forward is reported beside
+    ``limit``."""
+    from repro_torch.models import lm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fcfg = cfg.replace(ssm=replace(cfg.ssm, chunk=chunk))
+    dec, fwd = teacher_forced(torch, cfg, model, tok, s0, fcfg, state_check)
+    c32 = cfg32.replace(ssm=replace(cfg32.ssm, chunk=chunk))
+    with torch.no_grad():
+        h, _, _ = lm.forward(c32, model32, tok)
+        true = lm._head_out(c32, model32, h[:, s0 - 1:])[
+            ..., :cfg.vocab_size]
+    torch.cuda.synchronize()
+    scale = float(true.abs().max())
+    err_dec = float((dec - true).abs().max()) / scale
+    err_fwd = float((fwd - true).abs().max()) / scale
+    bound = max(limit, 1.25 * err_fwd)
+    out = dict(what=what, batch=tok.shape[0], prompt=s0, s_max=tok.shape[1],
+               layers=cfg.n_layers, forward_chunk=chunk,
+               rel_err=float((dec - fwd).abs().max()) / float(
+                   fwd.abs().max()), limit=limit,
+               decode_vs_f32=err_dec, forward_vs_f32=err_fwd,
+               decode_bound=bound, max_abs_logit_f32=scale,
+               argmax_equal=float((dec.argmax(-1) == fwd.argmax(-1)).float()
+                                  .mean()),
+               seconds=time.perf_counter() - t0)
+    emit(phase, **out)
+    check(bool(torch.isfinite(dec).all()), f"{what}: decode logits not "
+          "finite")
+    check(err_dec <= bound, f"{what}: decode {err_dec} of max |logit| from "
+          f"the f32 forward, the bf16 forward {err_fwd} (bound {bound})")
+    return out
+
+
+def greedy_vs_forward(torch, cfg, model, prompts, limit: float,
+                      phase: str) -> None:
+    """Each greedy token of ``serve.generate`` against the forward's argmax
+    on the prompt and the tokens fed back, unless its top-2 gap is under
+    ``limit`` of the largest |logit| (or, for a MoE config, its sequence
+    was routed otherwise, as ``decode_vs_forward`` sets apart)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    plen = prompts.shape[1]
+    with RouteRecorder() as rec:
+        out = serve.generate(cfg, model, prompts, SERVE_LM_GEN)
+        with torch.no_grad():
+            seq = torch.cat([prompts, out[:, :SERVE_LM_GEN]], dim=1)
+            h, _, _ = lm.forward(cfg, model, seq)
+            fwd = lm.mask_padded_logits(cfg, lm._head_out(
+                cfg, model, h[:, plen - 1:])).float()
+    top2 = fwd.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]) / float(fwd.abs().max())
+    differ = fwd.argmax(-1) != out.long()
+    held = torch.ones_like(differ)
+    if cfg.uses_moe:     # as in decode_vs_forward
+        parted, _ = routes_parted(torch, cfg, rec.calls, seq.shape[0], plen,
+                                  seq.shape[1])
+        held = ~parted[:, plen - 1:]
+    bad = int((differ & (gap >= limit) & held).sum())
+    emit(phase, what="greedy", arch=cfg.name, tokens=out.tolist(),
+         differ=int(differ.sum()), differ_over_limit=bad,
+         rows_routed_otherwise=int((~held).sum()),
+         min_gap=float(gap.min()))
+    check(bad == 0, f"{cfg.name}: {bad} greedy tokens part from the "
+          "forward's argmax by more than the limit")
 
 
 def phase_lm_serve(torch, np, card: dict, model) -> dict:
@@ -4420,24 +4669,9 @@ def phase_lm_serve(torch, np, card: dict, model) -> dict:
                                         SERVE_LM_PROMPT, SERVE_LM_BF16_LIMIT,
                                         "gemma-2b bf16")
 
-        # 3. each greedy token against the forward's argmax on the prompt
-        # and the tokens fed back, unless its top-2 gap is under the limit
-        prompts = tok[:, :SERVE_LM_PROMPT]
-        out = serve.generate(cfg, model, prompts, SERVE_LM_GEN)
-        with torch.no_grad():
-            seq = torch.cat([prompts, out[:, :SERVE_LM_GEN]], dim=1)
-            h, _, _ = lm.forward(cfg, model, seq)
-            fwd = lm.mask_padded_logits(cfg, lm._head_out(
-                cfg, model, h[:, SERVE_LM_PROMPT - 1:])).float()
-        top2 = fwd.topk(2, dim=-1).values
-        gap = (top2[..., 0] - top2[..., 1]) / float(fwd.abs().max())
-        differ = fwd.argmax(-1) != out.long()
-        bad = int((differ & (gap >= SERVE_LM_BF16_LIMIT)).sum())
-        emit("lm_serve", what="greedy", tokens=out.tolist(),
-             differ=int(differ.sum()), differ_over_limit=bad,
-             min_gap=float(gap.min()))
-        check(bad == 0, f"{bad} greedy tokens part from the forward's "
-              "argmax by more than the limit")
+        # 3. each greedy token against the forward's argmax
+        greedy_vs_forward(torch, cfg, model, tok[:, :SERVE_LM_PROMPT],
+                          SERVE_LM_BF16_LIMIT, "lm_serve")
 
         # 4. flash-decoding: a 2 032-token prompt, 2 048 slots
         n_flash = len(flash_calls)
@@ -4658,6 +4892,485 @@ def phase_lm_optim(torch, np) -> dict:
     return {"adamw": adam, "ef-topk": compressed}
 
 
+def opened(cfg):
+    """``cfg`` with the MoE capacity opened for decode against the forward:
+    capacity factor E / k, so a group's capacity is its token count and no
+    assignment can be dropped in the train-mode forward (the reference's
+    own test opens it to 8.0, which does that only where E / k <= 8; at
+    qwen3-moe's 128 / 8 a 48-token sequence keeps 24 an expert)."""
+    m = cfg.moe
+    return cfg.replace(moe=replace(m, capacity_factor=m.n_experts / m.top_k))
+
+
+def lm_driver(torch, np, phase: str, path: str, cfg, argv) -> dict:
+    """``launch/train.main(argv)`` on a fresh ``lm.init_lm(cfg)`` through
+    the ``model`` seam, the launch counts set to 0 just before and read
+    just after: finite losses, ``hidden_grad_tc`` once a candidate and
+    selection, the FFMA ``hidden_grad`` never, ``corr`` and
+    ``corr_argmax`` launched, each selection's weights summing to 1."""
+    import gc
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    args = train.build_argparser().parse_args(argv)
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident_before = torch.cuda.memory_allocated()
+    model = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = train.main(argv, model=model)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, shapes = ops.launch_counts(), ops.launch_shapes()
+    n_sel = -(-args.steps // args.select_every)
+    emit(phase, path=path, arch=cfg.name, layers=cfg.n_layers,
+         params=rep["params"], steps=rep["steps"],
+         micro_batch=args.micro_batch, seq_len=args.seq_len,
+         window=args.window, selections=n_sel, wall_seconds=rep["wall_s"],
+         selection_seconds=rep["selection_s"], main_seconds=seconds,
+         loss_first=rep["loss_first"], loss_last=rep["loss_last"],
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         resident_before_gb=resident_before / 1e9, launches=counts,
+         picks=rep["selections"])
+    check(all(np.isfinite(rep["losses"])), f"a {cfg.name} step's loss is "
+          "not finite")
+    check(counts["hidden_grad_tc"] == args.window * n_sel,
+          f"{path}: hidden_grad_tc launched {counts['hidden_grad_tc']} "
+          f"times, not {args.window * n_sel}")
+    check(counts["hidden_grad"] == 0, f"the FFMA hidden_grad launched "
+          f"{counts['hidden_grad']} times on the {path} path")
+    for name in ("corr", "corr_argmax"):
+        check(counts[name] > 0, f"kernel {name} was not launched on the "
+              f"{path} path")
+    for sel in rep["selections"]:
+        check(len(sel["indices"]) > 0 and abs(sum(sel["weights"]) - 1)
+              < 1e-4, f"selection {sel} is empty or its weights do not sum "
+              "to 1")
+    return {"model": model, "args": args, "rep": rep,
+            "run": {"counts": {path: counts}, "shapes": {path: shapes},
+                    "selection_seconds": {path: rep["selection_s"]}}}
+
+
+def hold_untied_head(torch, card: dict, records: dict, phase: str,
+                     path: str, cfg, model, cand) -> dict:
+    """``hidden_grad_tc`` on a real candidate of an untied head (W =
+    ``lm_head`` (d, V), contiguous): the path's route, against the plain
+    version within ``LM_HG_LIMIT`` of max |out|, the same bits twice,
+    timed beside the plain version and cuBLAS's f32 product of the
+    materialised residual; the record of ``path``."""
+    from repro_torch.kernels import lastlayer_grad as llg_k
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm
+
+    bw, _ = peaks(card["name"])
+    with torch.no_grad():
+        h, _, _ = lm.forward(cfg, model, cand["tokens"])
+        logits = lm._head_out(cfg, model, h)
+    del h
+    z = logits.reshape(-1, logits.shape[-1])
+    y = cand["targets"].reshape(-1)
+    w = lm.head_weight(cfg, model).detach()
+    n, v = z.shape
+    dh = w.shape[0]
+    check(not cfg.tie_embeddings and w.is_contiguous(),
+          f"{cfg.name}'s head is not an untied contiguous (d, V) matrix")
+    check(llg_k.takes_tensor_cores(z.dtype, w.dtype, n, v, dh, False,
+                                   z.data_ptr(), w.data_ptr()),
+          f"the {path} path's hidden_grad call is not routed to the tensor "
+          "cores")
+    before = dict(llg_k.launches)
+    got = llg_k.hidden_grad_fused(z, y, w)
+    again = llg_k.hidden_grad_fused(z, y, w)
+    check(llg_k.launches["hidden_grad_tc"] == before["hidden_grad_tc"] + 2
+          and llg_k.launches["hidden_grad"] == before["hidden_grad"],
+          f"the {path} head did not go to hidden_grad_tc")
+    want = ref.hidden_grad_ref(z, y, w)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    same_bits = bool(torch.equal(got, again))
+    del got, again, want
+    ms = device_ms(torch, lambda: llg_k.hidden_grad_fused(z, y, w), reps=10,
+                   warmup=2)
+    plain = device_ms(torch, lambda: ref.hidden_grad_ref(z, y, w), reps=10,
+                      warmup=2)
+    resid = torch.softmax(z.float(), dim=-1)
+    resid[torch.arange(n, device=z.device), y.long()] -= 1.0
+    wt32 = w.T.float().contiguous()
+    lib_ms = device_ms(torch, lambda: torch.mm(resid, wt32), reps=10,
+                       warmup=2)
+    del resid, wt32
+    nbytes = n * v * z.element_size() + v * dh * w.element_size() + (
+        4 * n * dh + y.element_size() * n)
+    by_bytes = nbytes / bw * 1e3
+    bound = max(by_bytes, 2 * 2 * n * v * dh / bf16_peak(card["name"])
+                * 1e3)
+    by = "bytes" if by_bytes >= bound else "operations"
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+               bound_by=by, library_ms=lib_ms, shape=[n, v, dh])
+    emit("kernels", kernel="hidden_grad_tc", path=path, dtype="bfloat16",
+         layout="lm_head (untied head)", max_abs_out=scale,
+         rel_err=err / scale, limit=LM_HG_LIMIT, same_bits=same_bits,
+         **{k: rec[k] for k in rec if k != "max_abs_err"}, max_abs_err=err)
+    check(err <= LM_HG_LIMIT * scale, f"hidden_grad_tc vs plain at ({n}, "
+          f"{v}, {dh}): max err {err}, max |out| {scale}")
+    check(same_bits, f"hidden_grad_tc gave other bits on a second call at "
+          f"({n}, {v}, {dh})")
+    records["hidden_grad_tc"][path] = rec
+    return rec
+
+
+def weighted_steps_repeat(torch, cfg, model, batch, lr: float) -> dict:
+    """Two weighted SGD steps (momentum 0.9, remat as configured) on
+    ``batch`` from the model's parameters, run twice from the same start:
+    the losses and every parameter must come out with the same bits.  The
+    parameters are put back afterwards."""
+    from repro_torch.optim import sgd
+    from repro_torch.train.steps import lm_train_step_fn
+
+    params = list(model.parameters())
+    start = [p.detach().clone() for p in params]
+    first, differ, losses = None, [], []
+    for run in range(2):
+        with torch.no_grad():
+            for p, s0 in zip(params, start):
+                p.copy_(s0)
+        opt = sgd(params, lr, momentum=0.9)
+        step = lm_train_step_fn(cfg, model, opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_losses = [float(step(batch)["loss"]) for _ in range(2)]
+        torch.cuda.synchronize()
+        losses.append(dict(losses=run_losses,
+                           seconds=time.perf_counter() - t0))
+        if first is None:
+            first = [p.detach().clone() for p in params]
+        else:
+            differ = [i for i, (p, q) in enumerate(zip(params, first))
+                      if not torch.equal(p, q)]
+        del opt, step
+    with torch.no_grad():
+        for p, s0 in zip(params, start):
+            p.copy_(s0)
+    same = not differ and losses[0]["losses"] == losses[1]["losses"]
+    del start, first
+    return dict(runs=losses, parameters=len(params),
+                parameters_differing=len(differ), same_bits=same)
+
+
+def capacity_drops(torch, cfg, model, tokens) -> dict:
+    """The share of (token, slot) assignments dropped at capacity in layer
+    0 on ``tokens``: that layer's MoE input caught during a train-mode
+    forward, routed and dispatched again (``_route``,
+    ``_dispatch_indices``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import lm, moe
+
+    seen = []
+    apply = moe.moe_apply
+
+    def first_input(c, p, x, group="seq"):
+        if not seen:
+            seen.append(x.detach())
+        return apply(c, p, x, group=group)
+
+    moe.moe_apply = first_input
+    try:
+        with torch.no_grad():
+            lm.forward(cfg, model, tokens)
+    finally:
+        moe.moe_apply = apply
+    x = seen[0]
+    g, t, _ = x.shape
+    m = cfg.moe
+    cap = moe.capacity_of(cfg, t)
+    router = model["blocks"][0]["sub0"]["mlp"]["router"]
+    with torch.no_grad():
+        ids, w, _ = moe._route(cfg, router, x)
+    kept = sum(int((moe._dispatch_indices(ids[i], w[i], m.n_experts, cap)[0]
+                    < t).sum()) for i in range(g))
+    total = g * t * m.top_k
+    load = F.one_hot(ids, m.n_experts).sum(dim=(1, 2))        # (G, E)
+    return dict(layer=0, groups=g, group_tokens=t, capacity=cap,
+                assignments=total, dropped=total - kept,
+                dropped_share=(total - kept) / total,
+                max_expert_load=int(load.max()),
+                experts_unused=int((load == 0).sum()))
+
+
+def phase_lm_moe(torch, np, card: dict, records: dict) -> dict:
+    """MoE through the port's LM entry points on the card.  The driver
+    (``train.main``, ``MOE_ARGV``) on qwen3-moe-30b-a3b at its published
+    widths cut to ``MOE_TRAIN_LAYERS`` layers; ``hidden_grad_tc`` on a real
+    candidate of its untied head; one selection with the kernels and one
+    with the plain versions, ``corr`` / ``corr_argmax`` at the path's
+    shapes; two weighted steps repeated bit for bit; the capacity drops of
+    layer 0.  Then ``serve.main`` at its defaults on qwen3-moe at full
+    width and depth, teacher-forced decode against the train-mode forward
+    (capacity opened, ``opened``) with each greedy token against
+    the forward's argmax (at bf16 the rows whose sequence decode routed
+    otherwise are set apart: ``decode_vs_forward``), the same at f32 cut
+    as the driver is (within 1e-5), and moonshot-v1-16b-a3b at full width
+    cut to ``MOONSHOT_LAYERS`` layers, the bf16 decode check.  The
+    serving paths reach no kernel of the port: their launch counts must
+    stay 0."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.common import count_params
+    from repro_torch.train.steps import make_lm_proxy_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    full = get_config(MOE_ARCH)
+    cfg = full.replace(n_layers=MOE_TRAIN_LAYERS,
+                       n_superblocks=MOE_TRAIN_LAYERS)
+    drv = lm_driver(torch, np, "lm_moe", "lm_moe", cfg, MOE_ARGV)
+    model, args = drv["model"], drv["args"]
+    stream = TokenStream(seed=args.seed, batch_per_shard=args.micro_batch,
+                         seq_len=args.seq_len, vocab=cfg.vocab_size,
+                         n_shards=args.window, device=dev)
+    last_round = (args.steps - 1) // args.select_every
+    cand = stream.batch(last_round, 0)
+    head = hold_untied_head(torch, card, records, "lm_moe", "lm_moe", cfg,
+                            model, cand)
+    lm_select_and_omp(torch, card, records, "lm_moe", "lm_moe",
+                      make_lm_proxy_step(cfg, model), stream, args,
+                      last_round)
+    batch = dict(cand)
+    batch["weights"] = torch.full((args.micro_batch,),
+                                  1.0 / args.micro_batch, device=dev)
+    det = weighted_steps_repeat(torch, cfg, model, batch, args.lr)
+    drops = capacity_drops(torch, cfg, model, cand["tokens"])
+    emit("lm_moe", what="determinism", **det)
+    emit("lm_moe", what="capacity", arch=cfg.name, **drops)
+    check(det["same_bits"], f"two weighted MoE steps from the same start "
+          f"gave other bits: {det}")
+    run = drv["run"]
+    del model, drv, batch, cand, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serving: qwen3-moe at full width and depth
+    ops.reset_launch_counts()
+    scfg = full.replace(n_layers=MOE_SERVE_LAYERS,
+                        n_superblocks=MOE_SERVE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_lm(scfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(model)
+    r = serve.main(["--arch", MOE_ARCH], model=model)
+    emit("lm_moe", what="serve.main", arch=scfg.name, layers=scfg.n_layers,
+         params=n_params, init_seconds=init_s, smi=card["smi"], report=r,
+         tok_per_s=r["tok_per_s"],
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(r["requests"] == 8 and r["tokens"] == 8 * SERVE_LM_GEN,
+          f"serve.main served {r}")
+    ocfg = opened(scfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s_tot = SERVE_LM_PROMPT + SERVE_LM_GEN
+    tok = torch.randint(0, scfg.vocab_size, (SERVE_LM_BATCH, s_tot),
+                        generator=gen, device=dev, dtype=torch.int32)
+    res = {"qwen3": decode_vs_forward(
+        torch, ocfg, model, tok, SERVE_LM_PROMPT, SERVE_LM_BF16_LIMIT,
+        f"{MOE_ARCH} bf16, {scfg.n_layers} layers, capacity factor "
+        f"{ocfg.moe.capacity_factor}", phase="lm_moe")}
+    greedy_vs_forward(torch, ocfg, model, tok[:, :SERVE_LM_PROMPT],
+                      SERVE_LM_BF16_LIMIT, "lm_moe")
+    res["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32 at full width, cut as the driver is
+    fcfg = opened(cfg.replace(param_dtype="float32"))
+    model = lm.init_lm(fcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tok = torch.randint(0, fcfg.vocab_size, (SERVE_LM_BATCH, s_tot),
+                        generator=gen, device=dev, dtype=torch.int32)
+    res["f32"] = decode_vs_forward(
+        torch, fcfg, model, tok, SERVE_LM_PROMPT, SERVE_LM_F32_LIMIT,
+        f"{MOE_ARCH} f32, {fcfg.n_layers} layers", phase="lm_moe")
+    del model, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # moonshot: 64 experts, top-6, two shared experts; 2 layers
+    mcfg = opened(get_config("moonshot-v1-16b-a3b").replace(
+        n_layers=MOONSHOT_LAYERS, n_superblocks=MOONSHOT_LAYERS))
+    model = lm.init_lm(mcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tok = torch.randint(0, mcfg.vocab_size, (SERVE_LM_BATCH, s_tot),
+                        generator=gen, device=dev, dtype=torch.int32)
+    res["moonshot"] = decode_vs_forward(
+        torch, mcfg, model, tok, SERVE_LM_PROMPT, SERVE_LM_BF16_LIMIT,
+        f"moonshot-v1-16b-a3b bf16, {MOONSHOT_LAYERS} layers, capacity "
+        f"factor {mcfg.moe.capacity_factor:.3f}", phase="lm_moe")
+    del model, tok
+    counts = ops.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("lm_moe", what="phase", serve_launches=counts,
+         seconds=time.perf_counter() - t_phase)
+    check(not any(counts.values()), f"the MoE serving paths launched "
+          f"{counts}")
+    return {**run, "head": head, "decode": res}
+
+
+def phase_lm_hybrid(torch, np, card: dict, records: dict) -> dict:
+    """The Mamba2 hybrid through the port's LM entry points on the card.
+    The driver (``train.main``, ``HYBRID_ARGV``) on zamba2-7b at its
+    published widths cut to its 3 prologue layers and
+    ``HYBRID_TRAIN_SUPERBLOCKS`` super-block; ``hidden_grad_tc`` on a real
+    candidate of its untied head; one selection with the kernels and one
+    with the plain versions, ``corr`` / ``corr_argmax`` at the path's
+    shapes; two weighted steps repeated bit for bit.  Then at full depth
+    (81 layers) ``serve.main`` at its defaults and teacher-forced decode
+    against the train-mode forward at batch ``HYBRID_BATCH``, 32 -> 48 and
+    512 -> 528 (two SSD chunks in the prefill; the forward over 528 tokens
+    takes chunks of ``HYBRID_LONG_CHUNK``), each held against the f32
+    forward of the same weights (``decode_vs_f32``), with each
+    super-block's shared block cache written by decode; and at f32, cut as
+    the driver is, 32 -> 48 within 1e-5.  The serving paths reach no
+    kernel of the port."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.common import count_params
+    from repro_torch.train.steps import make_lm_proxy_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    full = get_config(HYBRID_ARCH)
+    cut = dict(n_superblocks=HYBRID_TRAIN_SUPERBLOCKS,
+               n_layers=len(full.prologue)
+               + len(full.layer_pattern) * HYBRID_TRAIN_SUPERBLOCKS)
+    cfg = full.replace(**cut)
+    drv = lm_driver(torch, np, "lm_hybrid", "lm_hybrid", cfg, HYBRID_ARGV)
+    model, args = drv["model"], drv["args"]
+    stream = TokenStream(seed=args.seed, batch_per_shard=args.micro_batch,
+                         seq_len=args.seq_len, vocab=cfg.vocab_size,
+                         n_shards=args.window, device=dev)
+    last_round = (args.steps - 1) // args.select_every
+    cand = stream.batch(last_round, 0)
+    head = hold_untied_head(torch, card, records, "lm_hybrid", "lm_hybrid",
+                            cfg, model, cand)
+    lm_select_and_omp(torch, card, records, "lm_hybrid", "lm_hybrid",
+                      make_lm_proxy_step(cfg, model), stream, args,
+                      last_round)
+    batch = dict(cand)
+    batch["weights"] = torch.full((args.micro_batch,),
+                                  1.0 / args.micro_batch, device=dev)
+    det = weighted_steps_repeat(torch, cfg, model, batch, args.lr)
+    emit("lm_hybrid", what="determinism", **det)
+    check(det["same_bits"], f"two weighted hybrid steps from the same "
+          f"start gave other bits: {det}")
+    run = drv["run"]
+    del model, drv, batch, cand, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serving at full depth
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_lm(full, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(model)
+    r = serve.main(["--arch", HYBRID_ARCH], model=model)
+    emit("lm_hybrid", what="serve.main", arch=full.name,
+         layers=full.n_layers, params=n_params, init_seconds=init_s,
+         smi=card["smi"], report=r, tok_per_s=r["tok_per_s"],
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(r["requests"] == 8 and r["tokens"] == 8 * SERVE_LM_GEN,
+          f"serve.main served {r}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res = {}
+    written = {}
+
+    def shared_caches(s0, s_max):
+        def look(state):
+            blocks = state["blocks"]
+            si = full.layer_pattern.index("shared_attn")
+            rows = [float(b[f"sub{si}"]["k"][:, s0:s_max].float().abs()
+                          .amax()) for b in blocks]
+            ssd = [bool(torch.isfinite(b["sub0"]["ssd"]).all())
+                   for b in blocks]
+            written[s0] = dict(caches=len(rows),
+                               min_max_abs_k=min(rows),
+                               ssd_finite=all(ssd))
+        return look
+
+    # the same weights at f32: the forward the bf16 runs are held to
+    f32_full = full.replace(param_dtype="float32")
+    model32 = copy.deepcopy(model).float()
+    for s0 in (SERVE_LM_PROMPT, HYBRID_LONG_PROMPT):
+        s_tot = s0 + SERVE_LM_GEN
+        tok = torch.randint(0, full.vocab_size, (HYBRID_BATCH, s_tot),
+                            generator=gen, device=dev, dtype=torch.int32)
+        chunk = (HYBRID_LONG_CHUNK if s_tot % min(full.ssm.chunk, s_tot)
+                 else full.ssm.chunk)
+        res[s0] = decode_vs_f32(
+            torch, full, model, f32_full, model32, tok, s0,
+            HYBRID_BF16_LIMIT,
+            f"{HYBRID_ARCH} bf16, {full.n_layers} layers, {s0} -> {s_tot}",
+            "lm_hybrid", chunk, shared_caches(s0, s_tot))
+        del tok
+    del model32
+    emit("lm_hybrid", what="shared caches written by decode", **{
+        str(k): v for k, v in written.items()})
+    for s0, w in written.items():
+        check(w["caches"] == full.n_superblocks and w["min_max_abs_k"] > 0
+              and w["ssd_finite"], f"decode from {s0}: the shared block's "
+              f"caches were not all written, or a Mamba2 state is not "
+              f"finite: {w}")
+    gen_tok = torch.randint(0, full.vocab_size,
+                            (HYBRID_BATCH, SERVE_LM_PROMPT), generator=gen,
+                            device=dev, dtype=torch.int32)
+    greedy_vs_forward(torch, full, model, gen_tok, HYBRID_BF16_LIMIT,
+                      "lm_hybrid")
+    res["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, gen_tok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32, cut as the driver is
+    f32 = full.replace(param_dtype="float32", **cut)
+    model = lm.init_lm(f32, torch.Generator(device=dev).manual_seed(0), dev)
+    tok = torch.randint(0, f32.vocab_size,
+                        (HYBRID_BATCH, SERVE_LM_PROMPT + SERVE_LM_GEN),
+                        generator=gen, device=dev, dtype=torch.int32)
+    res["f32"] = decode_vs_forward(
+        torch, f32, model, tok, SERVE_LM_PROMPT, SERVE_LM_F32_LIMIT,
+        f"{HYBRID_ARCH} f32, {f32.n_layers} layers", phase="lm_hybrid")
+    del model, tok
+    counts = ops.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("lm_hybrid", what="phase", serve_launches=counts,
+         seconds=time.perf_counter() - t_phase)
+    check(not any(counts.values()), f"the hybrid serving paths launched "
+          f"{counts}")
+    return {**run, "head": head, "decode": res}
+
+
 def kernels_line(torch, records: dict, runs) -> list:
     """The ``kernels`` line from the paths' runs (each a dict of counts,
     shapes, routes and selection seconds): every kernel a path launched,
@@ -4790,7 +5503,9 @@ def main() -> int:
     lm_ = run("lm", phase_lm, torch, np, card, records)
     run("lm_serve", phase_lm_serve, torch, np, card, lm_.pop("model"))
     run("lm_optim", phase_lm_optim, torch, np)
-    runs = (tr, ba, cr, st, pa, sv, lm_)
+    mo = run("lm_moe", phase_lm_moe, torch, np, card, records)
+    hy = run("lm_hybrid", phase_lm_hybrid, torch, np, card, records)
+    runs = (tr, ba, cr, st, pa, sv, lm_, mo, hy)
     kernels = run("kernels_line", kernels_line, torch, records, runs)
     emit("done", seconds=time.perf_counter() - t_start, phases=phase_s)
     print(card["smi"])

@@ -2,29 +2,39 @@
 loss / prefill / decode / selection proxy.
 
 The port covers the attention layer kinds (``attn``, ``local``,
-``global``): the dense archs (gemma-2b, gemma2-9b, starcoder2-3b,
-codeqwen1.5-7b), in the reference's three modes:
+``global``) with a dense FFN or a Mixture-of-Experts (``models/moe.py``),
+and the Mamba2 hybrid (``mamba2`` sub-layers, ``models/ssm.py``, and
+zamba2's ``shared_attn`` block): the dense archs (gemma-2b, gemma2-9b,
+starcoder2-3b, codeqwen1.5-7b), the MoE archs (qwen3-moe-30b-a3b,
+moonshot-v1-16b-a3b) and zamba2-7b, in the reference's three modes:
 
   - ``train``:   stateless forward, recomputed per super-block with remat;
   - ``prefill``: forward that also returns the decode state;
-  - ``decode``:  one token against the state, whose caches it writes in
-    place (``prefill_step`` / ``decode_step``, under ``no_grad``).
+  - ``decode``:  one token against the state, whose attention caches it
+    writes in place (``prefill_step`` / ``decode_step``, under
+    ``no_grad``).
 
-MoE, ``mamba2``, ``mlstm``, ``slstm``, ``xattn``, ``shared_attn`` and
-encoder-only heads raise ``NotImplementedError`` (ROADMAP queue 1, "The
-rest of the LM side").  The decode state is a dict like the reference's,
-with ``blocks`` a list of super-blocks where the reference stacks them.
+``mlstm``, ``slstm``, ``xattn`` and encoder-only heads raise
+``NotImplementedError`` (ROADMAP queue 1, "The rest of the LM side").  The
+decode state is a dict like the reference's, with ``blocks`` a list of
+super-blocks where the reference stacks them.
 
 Parameters live in a ``ParamTree`` (``LM``) whose names follow the
 reference's pytree paths, with ``blocks`` a list of super-blocks where the
 reference stacks them on a leading axis; ``params_from_jax`` turns a
-``repro.models.lm.init_lm`` tree of numpy arrays into one.  Weights keep the
-reference's ``(in, out)`` layout.
+``repro.models.lm.init_lm`` tree of numpy arrays into one
+(``train.steps.reference_tree`` gives it back).  Weights keep the
+reference's ``(in, out)`` layout.  Zamba2's shared block is one set of weights,
+``params["shared"]``, outside ``blocks``: each super-block's ``shared_attn``
+sub-layer runs it (its gradient is the sum over the invocations), while
+each invocation keeps its own KV cache in its super-block's state.  The
+MoE load-balance loss is summed over the prologue and the blocks, through
+remat, as the reference's scan carries it.
 
 The weighted loss is the GRAD-MATCH integration point: ``lm_loss`` takes
 per-sequence weights ``w`` (the OMP output, summing to 1) and computes
-``sum_i w_i * meanCE_i``.  ``selection_proxy`` gives each sequence's exact
-head-input gradient through the fused ``hidden_grad`` kernel.
+``sum_i w_i * meanCE_i + aux``.  ``selection_proxy`` gives each sequence's
+exact head-input gradient through the fused ``hidden_grad`` kernel.
 """
 
 from __future__ import annotations
@@ -35,25 +45,23 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, GLOBAL, LOCAL, ModelConfig
+from repro_torch.configs.base import (ATTN, GLOBAL, LOCAL, MAMBA,
+                                      SHARED_ATTN, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.core import proxies as proxy_lib
-from repro_torch.models import attention, common, ffn
+from repro_torch.models import attention, common, ffn, moe, ssm
 from repro_torch.models.common import ParamTree, dtype_of
 
-_ATTN_KINDS = (ATTN, LOCAL, GLOBAL)
+_PORTED_KINDS = (ATTN, LOCAL, GLOBAL, SHARED_ATTN, MAMBA)
 _LATER = 'ROADMAP queue 1, "The rest of the LM side"'
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.prologue + cfg.layer_pattern)
-    if cfg.uses_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  f"yet ({_LATER})")
     if cfg.encoder_only:
         raise NotImplementedError(f"{cfg.name}: encoder-only heads are not "
                                   f"ported yet ({_LATER})")
-    other = sorted(kinds - set(_ATTN_KINDS))
+    other = sorted(kinds - set(_PORTED_KINDS))
     if other:
         raise NotImplementedError(f"{cfg.name}: layer kinds {other} are not "
                                   f"ported yet ({_LATER})")
@@ -61,7 +69,8 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 class LM(ParamTree):
     """The parameters of one LM (``embed``, ``lm_head`` when untied,
-    ``prologue``, ``blocks``, ``final_norm``) with its config."""
+    ``prologue``, ``shared``, ``blocks``, ``final_norm``) with its
+    config."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         _check_supported(cfg)
@@ -73,12 +82,16 @@ class LM(ParamTree):
 # Init
 # ---------------------------------------------------------------------------
 
-def _init_sublayer(cfg: ModelConfig, device, generator) -> dict:
+def _init_sublayer(cfg: ModelConfig, kind: str, device, generator) -> dict:
+    if kind == MAMBA:
+        return {"norm1": common.init_norm(cfg, device),
+                "mixer": ssm.init_mamba(cfg, device, generator)}
     p = {
         "norm1": common.init_norm(cfg, device),
         "attn": attention.init_attention(cfg, device, generator),
         "norm2": common.init_norm(cfg, device),
-        "mlp": ffn.init_ffn(cfg, device, generator),
+        "mlp": (moe.init_moe(cfg, device, generator) if cfg.uses_moe
+                else ffn.init_ffn(cfg, device, generator)),
     }
     if cfg.post_norm:
         p["post_norm1"] = common.init_norm(cfg, device)
@@ -101,13 +114,18 @@ def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         params["lm_head"] = common.dense_param(
             (cfg.d_model, cfg.padded_vocab), dt, device, generator)
     if cfg.prologue:
-        params["prologue"] = {f"pro{i}": _init_sublayer(cfg, device,
+        params["prologue"] = {f"pro{i}": _init_sublayer(cfg, kind, device,
                                                         generator)
-                              for i in range(len(cfg.prologue))}
+                              for i, kind in enumerate(cfg.prologue)}
+    if SHARED_ATTN in cfg.layer_pattern:
+        # one set of weights, run by every super-block's shared_attn
+        params["shared"] = _init_sublayer(cfg, SHARED_ATTN, device,
+                                          generator)
     if cfg.n_superblocks:
         params["blocks"] = [
-            {f"sub{si}": _init_sublayer(cfg, device, generator)
-             for si in range(len(cfg.layer_pattern))}
+            {f"sub{si}": _init_sublayer(cfg, kind, device, generator)
+             for si, kind in enumerate(cfg.layer_pattern)
+             if kind != SHARED_ATTN}
             for _ in range(cfg.n_superblocks)]
     params["final_norm"] = common.init_norm(cfg, device)
     return LM(cfg, params)
@@ -118,13 +136,16 @@ def params_from_jax(cfg: ModelConfig, params: Mapping[str, object],
     """An ``LM`` holding a JAX ``init_lm`` tree's values, on ``device``
     (``None``: the card).
 
-    ``params`` has numpy (or array-like) leaves; ``blocks`` is stacked on a
+    ``params`` has numpy (or array-like) leaves, or tensors (a snapshot
+    read by ``checkpoint.load_checkpoint``); ``blocks`` is stacked on a
     leading super-block axis, which is split into the port's list.  Leaves
     keep their dtype (bf16 arrays come through their bits) and layout.
     """
     device = resolve_device(device)
 
     def leaf(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().to(device, copy=True)
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             t = torch.from_numpy(a.view(np.uint16).astype(np.int16))
@@ -139,7 +160,8 @@ def params_from_jax(cfg: ModelConfig, params: Mapping[str, object],
     def split(node, i):
         if isinstance(node, Mapping):
             return {k: split(v, i) for k, v in node.items()}
-        return np.asarray(node)[i]
+        return node[i] if isinstance(node, torch.Tensor) else (
+            np.asarray(node)[i])
 
     out = {k: tree(v) for k, v in params.items() if k != "blocks"}
     if "blocks" in params:
@@ -154,7 +176,11 @@ def params_from_jax(cfg: ModelConfig, params: Mapping[str, object],
 
 def _init_substate(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                    device: torch.device) -> dict:
-    """Decode state of one sub-layer (zeros; prefill overwrites)."""
+    """Decode state of one sub-layer (zeros; prefill overwrites): the
+    Mamba2 state, or the attention caches (each shared_attn invocation
+    its own)."""
+    if kind == MAMBA:
+        return ssm.init_state(cfg, batch, device)
     window = cfg.sliding_window if kind == LOCAL else None
     return attention.init_decode_cache(cfg, batch, s_max, window=window,
                                        device=device)
@@ -187,10 +213,19 @@ def init_decode_state(cfg: ModelConfig, batch: int, s_max: int,
 def _apply_sublayer(cfg: ModelConfig, kind: str, p, x: torch.Tensor, *,
                     mode: str, positions: Optional[torch.Tensor] = None,
                     pos: Optional[int] = None, state: Optional[dict] = None
-                    ) -> tuple[torch.Tensor, Optional[dict]]:
-    """Returns (x_out, the sub-layer's new state or None)."""
-    window = cfg.sliding_window if kind == LOCAL else None
+                    ) -> tuple[torch.Tensor, Optional[dict],
+                               Optional[torch.Tensor]]:
+    """Returns (x_out, the sub-layer's new state or None, its MoE aux loss
+    or None)."""
     h = common.norm_apply(cfg, p["norm1"], x)
+    if kind == MAMBA:
+        if mode == "decode":
+            y, new_state = ssm.mamba_decode(cfg, p["mixer"], h, state)
+        else:
+            y, new_state = ssm.mamba_apply(cfg, p["mixer"], h, state=state,
+                                           return_state=mode == "prefill")
+        return x + y, new_state, None
+    window = cfg.sliding_window if kind == LOCAL else None
     if mode == "decode":
         a, new_state = attention.decode_self_attention(
             cfg, p["attn"], h, state, pos, window=window)
@@ -202,10 +237,15 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, p, x: torch.Tensor, *,
         a = common.norm_apply(cfg, p["post_norm1"], a)
     x = x + a
     h = common.norm_apply(cfg, p["norm2"], x)
-    f = ffn.ffn_apply(cfg, p["mlp"], h)
+    aux = None
+    if cfg.uses_moe:
+        f, aux = moe.moe_apply(cfg, p["mlp"], h,
+                               group="batch" if mode == "decode" else "seq")
+    else:
+        f = ffn.ffn_apply(cfg, p["mlp"], h)
     if cfg.post_norm:
         f = common.norm_apply(cfg, p["post_norm2"], f)
-    return x + f, new_state
+    return x + f, new_state, aux
 
 
 def _embed_in(cfg: ModelConfig, params: LM, tokens: torch.Tensor
@@ -245,43 +285,50 @@ def _forward(cfg, params, tokens, mode, states, pos):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_states: dict = {}
 
-    def sub(kind, p, xx, st):
-        return _apply_sublayer(cfg, kind, p, xx, mode=mode,
-                               positions=positions, pos=pos, state=st)
+    def sub(kind, p, xx, aa, st):
+        xx, nst, a = _apply_sublayer(cfg, kind, p, xx, mode=mode,
+                                     positions=positions, pos=pos, state=st)
+        # the aux loss is added a sub-layer at a time, as the reference's
+        # scan carries it
+        return xx, nst, aa if a is None else aa + a
 
     if cfg.prologue:
         pro = {}
         for i, kind in enumerate(cfg.prologue):
             st = states["prologue"][f"pro{i}"] if states else None
-            x, pro[f"pro{i}"] = sub(kind, params["prologue"][f"pro{i}"], x,
-                                    st)
+            x, pro[f"pro{i}"], aux = sub(
+                kind, params["prologue"][f"pro{i}"], x, aux, st)
         if mode != "train":
             new_states["prologue"] = pro
+    shared = params["shared"] if "shared" in params else None
 
-    def superblock(xx, bp, bst=None):
+    def superblock(xx, aa, bp, bst=None):
         out = {}
         for si, kind in enumerate(cfg.layer_pattern):
+            p = shared if kind == SHARED_ATTN else bp[f"sub{si}"]
             st = bst[f"sub{si}"] if bst is not None else None
-            xx, out[f"sub{si}"] = sub(kind, bp[f"sub{si}"], xx, st)
-        return xx, out
+            xx, out[f"sub{si}"], aa = sub(kind, p, xx, aa, st)
+        return xx, aa, out
 
-    def train_superblock(xx, bp):
-        return superblock(xx, bp)[0]
+    def train_superblock(xx, aa, bp):
+        return superblock(xx, aa, bp)[:2]
 
     blocks = params["blocks"] if cfg.n_superblocks else ()
     block_states = []
     for bi, bp in enumerate(blocks):
         if mode != "train":
             bst = states["blocks"][bi] if states else None
-            x, out = superblock(x, bp, bst)
+            x, aux, out = superblock(x, aux, bp, bst)
             block_states.append(out)
         elif cfg.remat and torch.is_grad_enabled():
             # Recompute the super-block in the backward pass, as the
             # reference's jax.checkpoint(nothing_saveable) does: the same
-            # numbers, activation memory of one super-block.
-            x = checkpoint(train_superblock, x, bp, use_reentrant=False)
+            # numbers, activation memory of one super-block.  The aux loss
+            # goes through it beside the residual stream.
+            x, aux = checkpoint(train_superblock, x, aux, bp,
+                                use_reentrant=False)
         else:
-            x = train_superblock(x, bp)
+            x, aux = train_superblock(x, aux, bp)
     if mode != "train" and cfg.n_superblocks:
         new_states["blocks"] = block_states
     return x, new_states, aux

@@ -128,6 +128,21 @@ def _stacked(named: dict, leaves: dict) -> dict:
             for key, names in leaves.items()}
 
 
+def reference_tree(model: lm_lib.LM) -> dict:
+    """The parameters as the reference's pytree (``lm.params_from_jax``'s
+    inverse, for a snapshot the reference reads): nested dicts by name,
+    each block leaf stacked over the super-blocks (``_stacked``)."""
+    named = {n: p.detach() for n, p in model.named_parameters()}
+    tree: dict = {}
+    for key, val in _stacked(named, reference_leaves(named)).items():
+        *path, last = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = val
+    return tree
+
+
 def _unstacked(tree: dict, leaves: dict) -> dict:
     """``_stacked``'s inverse: each parameter name's row of its leaf."""
     out = {}

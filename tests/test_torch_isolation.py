@@ -37,6 +37,8 @@ def test_port_files_exist():
                  "src/repro_torch/models/lm.py",
                  "src/repro_torch/models/attention.py",
                  "src/repro_torch/models/ffn.py",
+                 "src/repro_torch/models/moe.py",
+                 "src/repro_torch/models/ssm.py",
                  "src/repro_torch/data/tokens.py",
                  "src/repro_torch/configs/base.py",
                  "src/repro_torch/configs/gemma_2b.py",
@@ -91,6 +93,7 @@ def test_trainer_import_loads_no_jax():
             "import repro_torch.launch.build_artifacts; "
             "import repro_torch.launch.serve, repro_torch.optim; "
             "import repro_torch.train.compression; "
+            "import repro_torch.models.moe, repro_torch.models.ssm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('ok')")
@@ -284,3 +287,27 @@ def test_serving_entry_points_refuse_the_cpu_without_being_asked(tmp_path):
     assert svc.select(svc.register_pool(g), 2).indices.device.type == "cpu"
     key, _ = build_artifact(store, g, g.sum(0), 2, device="cpu")
     assert store.get(key) is not None
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-7b"])
+def test_moe_and_hybrid_entry_points_refuse_the_cpu_without_being_asked(
+        arch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models import lm, ssm
+
+    cfg = get_smoke_config(arch)
+    calls = [lambda: lm.init_lm(cfg),
+             lambda: lm.init_decode_state(cfg, 1, 8),
+             lambda: train.main(["--arch", arch, "--smoke"]),
+             lambda: serve.main(["--arch", arch, "--smoke"])]
+    if cfg.ssm is not None:
+        calls.append(lambda: ssm.init_state(cfg, 1))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # asked for explicitly, the CPU is fine
+    model = lm.init_lm(cfg, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
