@@ -501,26 +501,47 @@ def ran_at(key: tuple) -> tuple[tuple, bool]:
 
 def hold_corr(torch, card: dict, g, r) -> dict:
     """``corr`` against its plain version at ``g``'s shape (rtol 1e-5, atol
-    1e-6 of max |g_i| |r|), timed beside the plain version and
-    ``torch.mv``; returns the record."""
+    1e-6 of max |g_i| |r|) and every route its plan can give the shape
+    against the warp kernel's bits; timed on the plan's route and on each
+    route beside the plain version and ``torch.mv``; returns the record."""
     from repro_torch.kernels import corr as corr_k
     from repro_torch.kernels import ref
     n, d = g.shape
     dt = str(g.dtype).removeprefix("torch.")
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    plan = asdict(corr_k.corr_plan(n, d, g.element_size(), g.data_ptr(),
+                                   sms))
     got, want = corr_k.corr(g, r), ref.corr_ref(g, r)
     err = float((got - want).abs().max())
     scale = float(torch.sqrt((g.float() ** 2).sum(1).max() * (r ** 2).sum()))
     check(torch.allclose(got, want, rtol=1e-5, atol=1e-6 * max(scale, 1.0)),
           f"corr kernel disagrees at ({n}, {d}) {dt}: max err {err}")
+    warps = corr_k.corr(g, r, route="warps")
+    route_ms = {}
+    for route in ("rows", "wide", "warps"):
+        try:
+            corr_k.corr_plan(n, d, g.element_size(), g.data_ptr(), sms,
+                             route)
+        except ValueError:
+            continue                # a layout that cannot take the shape
+        check(torch.equal(corr_k.corr(g, r, route=route), warps),
+              f"corr ({n}, {d}) {dt}: the {route} route is not the warp "
+              "kernel's bits")
+        route_ms[route] = device_ms(torch, lambda: corr_k.corr(
+            g, r, route=route))
+    check(torch.equal(got, warps), f"corr ({n}, {d}) {dt}: the plan's "
+          f"{plan['route']} route is not the warp kernel's bits")
     ms = device_ms(torch, lambda: corr_k.corr(g, r))
     plain = device_ms(torch, lambda: ref.corr_ref(g, r))
     lib_ms = device_ms(torch, lambda: torch.mv(g, r.to(g.dtype)))
     b, by = bound_of(card, n * d * g.element_size() + 4 * d + 4 * n,
                      2 * n * d)
     emit("kernels", kernel="corr", shape=[n, d], dtype=dt, max_abs_err=err,
-         ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b)
+         ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b, plan=plan,
+         route_ms=route_ms)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=lib_ms, shape=[n, d])
+                bound_by=by, library_ms=lib_ms, shape=[n, d], plan=plan,
+                route_ms=route_ms)
 
 
 def check_argmax(torch, c, w, base, mask, absolute, what) -> float:
@@ -605,6 +626,7 @@ def phase_build() -> None:
          ptxas_hidden_grad_tc=ptxas_report(log, "hidden_grad_tc_kernel"),
          ptxas_fl_gain_tc=ptxas_report(log, "fl_gain_tc_kernel"),
          ptxas_corr_batched_rows=ptxas_report(log, "row_tiles_kernel"),
+         ptxas_corr_wide=ptxas_report(log, "corr_wide_kernel"),
          ptxas_corr_batched_warps=ptxas_report(log, "corr_batched_kernel"),
          ptxas_corr_argmax_batched_warps=ptxas_report(
              log, "corr_argmax_batched_kernel"),
@@ -659,7 +681,8 @@ def phase_kernels(torch, np, card: dict) -> dict:
          one_element_sum_ms=device_ms(torch, lambda: one.sum()))
 
     # -- corr: per-class (45 000, 65) and PB (703, 10) f32, wide (8192, 512)
-    #    f32 and bf16, ragged ------------------------------------------------
+    #    f32 and bf16, ragged, the bf16 streaming arenas, the LM's
+    #    candidates (gemma-2b's and qwen3-moe's d 2 048, zamba2's 3 584) ----
     for n, d, dt, paths in ((ROWS, 65, "float32", ("gradmatch",)),
                             (PB_ROWS, 10, "float32",
                              ("gradmatch-pb", "sharded-pb")),
@@ -674,7 +697,11 @@ def phase_kernels(torch, np, card: dict) -> dict:
                              ("partitioned-hash", "partitioned-contiguous")),
                             (*WIDE, "float32", ()),
                             (*WIDE, "bfloat16", ()),
-                            (1000, 700, "float32", ())):
+                            (1000, 700, "float32", ()),
+                            (88_064, 10, "bfloat16", ()),
+                            (86_016, 65, "bfloat16", ()),
+                            (16, 2048, "float32", ()),
+                            (16, 3584, "float32", ())):
         g = t(rng.standard_normal((n, d)).astype(np.float32)).to(
             getattr(torch, dt))
         r = t(rng.standard_normal(d).astype(np.float32))

@@ -41,8 +41,11 @@ def check_array(name: str, t: torch.Tensor, shape: tuple,
 
 
 def stream(device: torch.device) -> int:
-    """The current CUDA stream of ``device``, as the kernels take it."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device``, as the kernels take it: the
+    raw handle, without the Python Stream object that
+    ``torch.cuda.current_stream`` builds (PERF.md §6 gives both costs a
+    call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 BLOCK_SMEM = 232_448    # a block's most shared memory on sm_90 (227 KB)

@@ -107,8 +107,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_corr.argtypes = [i32, p, i32, p, p, i64, i64, i32, p]
     lib.rt_corr_argmax.argtypes = [i32, p, p, p, p, i64, i64, i32, i32, p,
                                    p, p, p]
-    lib.rt_corr_batched.argtypes = [i32, p, p, p, i64, i64, i64, i32, i32,
-                                    i32, i32, i32, i64, p]
+    lib.rt_corr_wide.argtypes = [i32, p, i32, p, p, i64, i64, i32, i32, i64,
+                                 p]
+    lib.rt_corr_batched.argtypes = [i32, p, i32, p, p, i64, i64, i64, i32,
+                                    i32, i32, i32, i32, i64, p]
     lib.rt_corr_argmax_batched.argtypes = [i32, p, p, p, p, i64, i64, i64,
                                            i32, i32, i32, i32, i32, i32, i32,
                                            i64, p, p, p, p]
@@ -130,8 +132,9 @@ def _declare(lib: ctypes.CDLL) -> None:
                                    i64, i64, i64, i64, i32, p, p, p]
     lib.rt_hidden_grad_tc.argtypes = [i32, p, i32, p, i32, p, i32, p, i64,
                                       i64, i64, i64, i32, p, p, p]
-    for fn in (lib.rt_corr, lib.rt_corr_argmax, lib.rt_corr_batched,
-               lib.rt_corr_argmax_batched, lib.rt_lastlayer_grad,
+    for fn in (lib.rt_corr, lib.rt_corr_wide, lib.rt_corr_argmax,
+               lib.rt_corr_batched, lib.rt_corr_argmax_batched,
+               lib.rt_lastlayer_grad,
                lib.rt_fl_gain_argmax, lib.rt_fl_gain_argmax_otf,
                lib.rt_fl_gain_argmax_otf_tc, lib.rt_sqrt_rn_mismatches,
                lib.rt_sqdist, lib.rt_sqdist_tc, lib.rt_bound_max,

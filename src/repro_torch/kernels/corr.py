@@ -15,6 +15,12 @@ if the launch failed; given CPU tensors it runs the plain version in
 same launches of ``corr`` and ``bound_max`` by (kernel, rows, d, dtype),
 and of the batched kernels by (kernel, rows, d, dtype, B, per-problem).
 
+``corr`` launches by ``corr_plan``, a pure function of the shape, the
+element size and the lane order: the batched kernel's row tiles at B = 1
+(f32 or bf16) for a pool of width 1-96 from ``CORR_MIN_ROWS`` rows, the
+wide route (``csrc/corr.cu``: a block's rows and the residual by bulk copy)
+for few rows of more than 1 KB, its warp kernel for the rest; the three
+give the same bits, and ``corr_routes`` counts them.
 The batched kernels launch by a plan (``batched_plan``), a pure function of
 the shapes: the row-tile route (one thread a row) for a shared pool of
 width 1-96, the warp route (one warp a row) for the rest.  ``corr_argmax``
@@ -45,6 +51,7 @@ launches = {"corr": 0, "corr_argmax": 0, "corr_batched": 0,
 # bound_max's and corr_argmax's launches by route, bumped with ``launches``.
 bound_routes = {"tiles": 0, "rows": 0}
 argmax_routes = {"rows": 0, "warps": 0}
+corr_routes = {"rows": 0, "wide": 0, "warps": 0}
 # corr and bound_max launches by (kernel, rows, d, dtype), the batched
 # kernels' by (kernel, rows, d, dtype, B, per-problem matrix), bumped with
 # ``launches``: one path calls corr at many shapes (a buffer, a chunk, one
@@ -61,27 +68,54 @@ def _count(name: str, m: torch.Tensor, *batch) -> None:
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _lanes16(addr: int, d: int, itemsize: int) -> bool:
+    """Whether rows of ``d`` ``itemsize``-byte elements from ``addr`` all
+    start on a 16-byte boundary: the kernels' 16-byte lane order."""
+    return addr % 16 == 0 and d % (16 // itemsize) == 0
+
+
 def _vec_ok(m: torch.Tensor) -> int:
     """1 when every row starts on a 16-byte boundary (16-byte loads)."""
-    per_vec = 16 // m.element_size()
-    return int(m.data_ptr() % 16 == 0 and m.shape[1] % per_vec == 0)
+    return int(_lanes16(m.data_ptr(), m.shape[1], m.element_size()))
 
 
-def corr(grads: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+def corr(grads: torch.Tensor, residual: torch.Tensor, *,
+         route: str | None = None) -> torch.Tensor:
     """scores = grads @ residual in f32.  grads (n, d) f32/bf16, residual
-    (d,) f32 -> (n,) f32."""
+    (d,) f32 -> (n,) f32.
+
+    A CUDA call launches by ``corr_plan`` (``route`` forces one, for
+    measurement): one device operation on each route, and the same bits.
+    """
     if not grads.is_cuda:
         return ref.corr_ref(grads, residual)
     check_matrix("grads", grads, _DTYPES)
     n, d = grads.shape
-    check_vector("residual", residual, d, grads.device, torch.float32)
-    out = torch.empty((n,), dtype=torch.float32, device=grads.device)
-    code = build.lib().rt_corr(
-        grads.device.index, grads.data_ptr(), _DTYPES[grads.dtype],
-        residual.data_ptr(), out.data_ptr(), n, d, _vec_ok(grads),
-        stream(grads.device))
+    dev = grads.device
+    check_vector("residual", residual, d, dev, torch.float32)
+    plan = corr_plan(n, d, grads.element_size(), grads.data_ptr(),
+                     sm_count(dev), route)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    vec = _vec_ok(grads)
+    dtype = _DTYPES[grads.dtype]
+    if plan.route == "warps":
+        code = build.lib().rt_corr(
+            dev.index, grads.data_ptr(), dtype, residual.data_ptr(),
+            out.data_ptr(), n, d, vec, stream(dev))
+    elif plan.route == "rows":
+        # corr_batched's row tiles at B = 1: the residual (d,) is (1, d)
+        # and the scores (n,) its (n, 1) output.
+        code = build.lib().rt_corr_batched(
+            dev.index, grads.data_ptr(), dtype, residual.data_ptr(),
+            out.data_ptr(), n, d, 1, vec, 1, plan.rows, plan.groups,
+            plan.stages, plan.grid, stream(dev))
+    else:
+        code = build.lib().rt_corr_wide(
+            dev.index, grads.data_ptr(), dtype, residual.data_ptr(),
+            out.data_ptr(), n, d, vec, plan.rows, plan.grid, stream(dev))
     build.check(code, "corr")
     _count("corr", grads)
+    corr_routes[plan.route] += 1
     return out
 
 
@@ -147,6 +181,10 @@ ROW_MAX_D = 96          # the widest row a thread keeps in registers
 ROW_MIN_ROWS = 1 << 11  # smaller pools take the warps, and so do
 ROW_MIN_PAIRS = 1 << 14  # smaller batches (PERF.md §6)
 ARGMAX_MIN_ROWS = 10_240  # corr_argmax's row tiles from here (PERF.md §6)
+CORR_MIN_ROWS = 20_480  # corr's row tiles from here, and its wide
+WIDE_MAX_ROWS = 512     # route up to here, for rows of more than
+WIDE_MIN_BYTES = 1_024  # this (PERF.md §6)
+WIDE_MAX_WARPS = 8      # the wide route's warps (rows) a block
 # Blocks an SM by rows a thread, the kernel's bounds: 128 threads at up to
 # 128 registers each (one row a thread), or 170 (two rows).
 ROW_BLOCKS_PER_SM = {1: 4, 2: 3}
@@ -156,12 +194,15 @@ WARP_BLOCKS_PER_SM = 4
 
 @dataclass(frozen=True)
 class BatchedPlan:
-    """How a batched kernel launches at a shape.  ``route`` "rows": one
-    thread a row (or two), tiles of ``rows`` consecutive rows loaded by
-    bulk copy into a ring of ``stages`` shared-memory slots, ``groups``
-    threads sharing each row's problems, ``smem`` bytes of dynamic shared
-    memory; "warps": one warp a row, ``rows`` warps a block, static shared
-    memory only (``groups`` 1).  ``grid`` blocks."""
+    """How a batched kernel, or ``corr``, launches at a shape.  ``route``
+    "rows": one thread a row (or two), tiles of ``rows`` consecutive rows
+    loaded by bulk copy into a ring of ``stages`` shared-memory slots,
+    ``groups`` threads sharing each row's problems, ``smem`` bytes of
+    dynamic shared memory; "warps": one warp a row, ``rows`` warps a block,
+    static shared memory only (``groups`` 1); "wide" (``corr``): one warp a
+    row, ``rows`` warps a block, a block's rows and the residual in
+    ``smem`` bytes by bulk copy, one block for each ``rows`` rows.
+    ``grid`` blocks."""
     route: str
     rows: int
     stages: int
@@ -174,14 +215,17 @@ def _align128(x: int) -> int:
     return -(-x // 128) * 128
 
 
-def rows_smem(d: int, b: int, rows: int, stages: int, argmax: bool) -> int:
+def rows_smem(d: int, b: int, rows: int, stages: int, argmax: bool,
+              itemsize: int = 4) -> int:
     """Dynamic shared memory of a row-tile block, the total of the kernel's
-    ``RowLayout``: barriers, B vectors of 32 ceil(d / 32) + 12 floats, B x 128 keys
-    (argmax) or a (rows, B | 1) output tile, then ``stages`` tile slots."""
+    ``RowLayout``: barriers, B vectors of 32 ceil(d / 32) + 12 floats, B x
+    128 keys (argmax) or a (rows, B | 1) output tile, then ``stages`` tile
+    slots of rows x d elements of ``itemsize`` bytes."""
     vs = 32 * -(-d // 32) + 12
     keys = _align128(128 + b * vs * 4)
     per = b * ROW_THREADS * 8 if argmax else rows * (b | 1) * 4
-    return _align128(keys + per) + stages * _align128(rows * d * 4 + 16)
+    return (_align128(keys + per)
+            + stages * _align128(rows * d * itemsize + 16))
 
 
 def row_split(b: int, argmax: bool, vec: bool) -> tuple[int, int]:
@@ -198,9 +242,10 @@ def row_split(b: int, argmax: bool, vec: bool) -> tuple[int, int]:
 
 
 def _row_plan(n: int, d: int, b: int, argmax: bool, vec: bool,
-              sms: int) -> BatchedPlan | None:
-    """The row-tile launch of an (n, d) shared pool and B problems, or None
-    where its layout does not fit a block's shared memory."""
+              sms: int, itemsize: int = 4) -> BatchedPlan | None:
+    """The row-tile launch of an (n, d) shared pool of ``itemsize``-byte
+    elements and B problems, or None where its layout does not fit a
+    block's shared memory."""
     groups, per_thread = row_split(b, argmax, vec)
     if -(-n // (ROW_THREADS * per_thread // groups)) < sms:
         # fewer tiles than SMs: one row a thread, the problems shared
@@ -210,7 +255,7 @@ def _row_plan(n: int, d: int, b: int, argmax: bool, vec: bool,
     tiles = max(1, -(-n // rows))
 
     def fit(stages):
-        smem = rows_smem(d, b, rows, stages, argmax)
+        smem = rows_smem(d, b, rows, stages, argmax, itemsize)
         return smem, min(SM_SMEM // (smem + 1024),
                          ROW_BLOCKS_PER_SM[per_thread])
 
@@ -274,8 +319,8 @@ def corr_argmax_plan(n: int, p: int, addr: int, sms: int = 132,
     (16-byte or scalar), as it does ``rt_corr_argmax``'s."""
     if route not in (None, "rows", "warps"):
         raise ValueError(f"corr_argmax: no route {route!r}")
-    return _argmax_plan(n, p, addr % 16 == 0 and p % 4 == 0, sms, route,
-                        ROW_MAX_D, ARGMAX_MIN_ROWS)
+    return _argmax_plan(n, p, _lanes16(addr, p, 4), sms, route, ROW_MAX_D,
+                        ARGMAX_MIN_ROWS)
 
 
 @functools.lru_cache(maxsize=256)
@@ -299,18 +344,115 @@ def _argmax_plan(n: int, p: int, vec: bool, sms: int, route: str | None,
                        max(1, min(-(-n // WARP_ROWS), ROWS_MAX_BLOCKS)), 0)
 
 
-def tile_spans(n: int, d: int, offset: int,
-               rows: int = ROW_THREADS) -> list[tuple[int, ...]]:
+def corr_plan(n: int, d: int, itemsize: int, addr: int, sms: int = 132,
+              route: str | None = None) -> BatchedPlan:
+    """The launch of ``corr`` on an (n, d) pool of ``itemsize``-byte
+    elements (4 f32, 2 bf16) at ``addr``, on a card of ``sms`` SMs;
+    ``route`` forces one route (ValueError, naming it, where its layout
+    cannot take the call).
+
+    - "rows": the batched kernel's row tiles at B = 1 (``_row_plan``, the
+      batch thresholds lifted), for widths 1 <= d <= ``ROW_MAX_D`` from
+      ``CORR_MIN_ROWS`` rows, f32 or bf16, at any address (the copy's head
+      and tail take what is off a 16-byte boundary);
+    - "wide": ``wide_plan``, for rows of more than ``WIDE_MIN_BYTES``
+      (wider than ``ROW_MAX_D``) up to ``WIDE_MAX_ROWS`` rows, where a row
+      and the residual fit a block's shared memory;
+    - "warps": the warp kernel of ``csrc/corr.cu``, for the rest.
+
+    On an H100 (PERF.md §6, ``tools/kernel_turns.py --routes``) the row
+    tiles' set-up (a barrier, the residual's staging, a bulk copy's round
+    trip, two block barriers) costs 1.0-1.6 µs more than the warps' single
+    pass and is repaid from 14 336-20 480 rows at widths 10 and 65 (the
+    later where the pool is off a 16-byte boundary); the wide route beats
+    the warps where a lane of the warp kernel walks more than two 16-byte
+    loads of a row (more than 1 KB) and the rows are few: even at 1-1.5
+    KB, 0.1-4.3 µs faster from 2 KB up to 512 rows, and from 768 rows
+    mostly slower.  GRAD-MATCH's (45 000, 65)
+    and the streaming arenas take the row tiles; the stream paths'
+    buffers, chunks and single rows (up to 4 096 rows), GRAD-MATCH-PB's
+    (703, 10), the wide regime's (8 192, 512) and the ragged (1 000, 700)
+    the warps; the LM's (16, 2 048) and (16, 3 584) the wide route.
+
+    ``addr`` and the width decide the replayed lane order (16-byte or
+    scalar, ``_vec_ok``), as they do ``rt_corr``'s; every route gives the
+    warp kernel's bits."""
+    if route not in (None, "rows", "wide", "warps"):
+        raise ValueError(f"corr: no route {route!r}")
+    return _corr_plan(n, d, itemsize, _lanes16(addr, d, itemsize), sms,
+                      route, ROW_MAX_D, CORR_MIN_ROWS, WIDE_MAX_ROWS,
+                      WIDE_MIN_BYTES, WIDE_MAX_WARPS)
+
+
+@functools.lru_cache(maxsize=256)
+def _corr_plan(n: int, d: int, itemsize: int, vec: bool, sms: int,
+               route: str | None, max_d: int, min_rows: int, wide_max: int,
+               wide_bytes: int, wide_warps: int) -> BatchedPlan:
+    """``corr_plan`` by the lane order rather than the address, cached: the
+    stream paths call ``corr`` ~34 000 times a selection at a few shapes,
+    and the plan's arithmetic would be host time on each call.  The
+    thresholds are arguments, so that the cache follows a caller who
+    changes them."""
+    rows = (_row_plan(n, d, 1, False, vec, sms, itemsize)
+            if 1 <= d <= max_d and 1 <= n < 2 ** 31 else None)
+    wide = wide_plan(n, d, itemsize, sms, wide_warps)
+    if route == "rows" and rows is None:
+        raise ValueError(f"corr: the rows route cannot take ({n}, {d})")
+    if route == "wide" and wide is None:
+        raise ValueError(f"corr: the wide route cannot take ({n}, {d}) of "
+                         f"{itemsize}-byte elements")
+    if route == "rows" or (route is None and rows is not None
+                           and n >= min_rows):
+        return rows
+    if route == "wide" or (route is None and wide is not None
+                           and d > max_d and d * itemsize > wide_bytes
+                           and n <= wide_max):
+        return wide
+    # the warp kernel's own grid (csrc/common.cuh: blocks_for_rows)
+    return BatchedPlan("warps", WARP_ROWS, 0,
+                       max(1, min(-(-n // WARP_ROWS), ROWS_MAX_BLOCKS)), 0)
+
+
+def wide_smem(d: int, itemsize: int, warps: int) -> int:
+    """Dynamic shared memory of a wide-route block, the total of
+    ``csrc/corr.cu``'s ``WideLayout``: the barrier, the residual (d floats)
+    and the block's ``warps`` rows, each with 16 bytes for its offset from
+    a 16-byte boundary."""
+    return (_align128(128 + 4 * d + 16)
+            + _align128(warps * d * itemsize + 16))
+
+
+def wide_plan(n: int, d: int, itemsize: int, sms: int = 132,
+              max_warps: int = WIDE_MAX_WARPS) -> BatchedPlan | None:
+    """The wide route's launch of an (n, d) pool, or None where one row and
+    the residual do not fit a block's shared memory: ``max_warps`` rows a
+    block, halved while the blocks would be fewer than the SMs or would
+    not fit, one block for each such span of rows."""
+    if n < 1 or d < 1 or n >= 2 ** 31:
+        return None
+    warps = max_warps
+    while warps > 1 and (-(-n // warps) < sms
+                         or wide_smem(d, itemsize, warps) > BLOCK_SMEM):
+        warps //= 2
+    smem = wide_smem(d, itemsize, warps)
+    if smem > BLOCK_SMEM:
+        return None
+    return BatchedPlan("wide", warps, 1, -(-n // warps), smem)
+
+
+def tile_spans(n: int, d: int, offset: int, rows: int = ROW_THREADS,
+               itemsize: int = 4) -> list[tuple[int, ...]]:
     """(first row, rows, head, bulk, tail) of each tile of ``rows`` rows as
-    the kernel loads it (``start_tile``) from an (n, d) f32 pool whose
-    first element lies ``offset`` bytes past a 16-byte boundary: ``bulk``
-    bytes by one bulk copy from a 16-byte boundary, the ``head`` before it
-    and the ``tail`` after it by plain loads."""
+    the kernel loads it (``start_tile``) from an (n, d) pool of
+    ``itemsize``-byte elements whose first element lies ``offset`` bytes
+    past a 16-byte boundary: ``bulk`` bytes by one bulk copy from a 16-byte
+    boundary, the ``head`` before it and the ``tail`` after it by plain
+    loads."""
     spans = []
     for r0 in range(0, n, rows):
         k = min(rows, n - r0)
-        a = offset + r0 * d * 4
-        e = a + k * d * 4
+        a = offset + r0 * d * itemsize
+        e = a + k * d * itemsize
         a16 = min(-(-a // 16) * 16, e)
         e16 = max(e // 16 * 16, a16)
         spans.append((r0, k, a16 - a, e16 - a16, e - e16))
@@ -366,8 +508,8 @@ def corr_batched(grads: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     vec = _vec_ok(grads)
     plan = _plan(dev, n, d, bsz, argmax=False, vec=bool(vec))
     code = build.lib().rt_corr_batched(
-        dev.index, grads.data_ptr(), vecs.data_ptr(), out.data_ptr(), n, d,
-        bsz, vec, int(plan.route == "rows"), plan.rows, plan.groups,
+        dev.index, grads.data_ptr(), 0, vecs.data_ptr(), out.data_ptr(), n,
+        d, bsz, vec, int(plan.route == "rows"), plan.rows, plan.groups,
         plan.stages, plan.grid, stream(dev))
     build.check(code, "corr_batched")
     _count("corr_batched", grads, bsz, False)

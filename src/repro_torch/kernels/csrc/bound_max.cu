@@ -195,11 +195,7 @@ constexpr int kBoundMaxTiles = 64;    // tiles a block walks, at most
 constexpr int kBoundMaxStages = 2;
 // A block's dynamic shared memory, at most: 227 KB, a block's most on
 // sm_90, less 1 KB for the kernel's static shared variables.
-constexpr int64_t kMaxSmem = 232448 - 1024;
-
-__host__ __device__ constexpr int64_t align128(int64_t x) {
-  return (x + 127) & ~int64_t{127};
-}
+constexpr int64_t kBoundSmem = kMaxSmem - 1024;
 
 // Dynamic shared memory of a tile block, in bytes from its base
 // (kernels/corr.py: bound_smem mirrors the total):
@@ -369,17 +365,9 @@ __global__ void __launch_bounds__(kThreads) bound_tiles_kernel(
 template <typename T>
 cudaError_t launch_tiles(const BoundArgs& a, int device, int64_t grid,
                          int64_t smem, cudaStream_t s) {
-  // Raised to the block's most once per device, on the first launch that
-  // needs more than the default 48 KB.
-  static int64_t allowed[64] = {};
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && allowed[device] < kMaxSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bound_tiles_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMaxSmem));
-    if (e != cudaSuccess) return e;
-    allowed[device] = kMaxSmem;
-  }
+  const cudaError_t e =
+      allow_smem<bound_tiles_kernel<T>>(device, smem, kBoundSmem);
+  if (e != cudaSuccess) return e;
   bound_tiles_kernel<T><<<static_cast<unsigned int>(grid), kThreads,
                           static_cast<size_t>(smem), s>>>(a);
   return cudaGetLastError();
@@ -400,7 +388,7 @@ cudaError_t bound_tiles(const BoundArgs& a, int device, int64_t grid,
     return cudaErrorInvalidValue;
   const int64_t smem =
       BoundLayout(a.d, sizeof(T), a.tile_rows, a.stages).total;
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kBoundSmem) return cudaErrorInvalidValue;
   return launch_tiles<T>(a, device, grid, smem, s);
 }
 

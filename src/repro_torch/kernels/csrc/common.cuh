@@ -12,6 +12,29 @@ constexpr int kThreads = kWarpsPerBlock * 32;
 // Grid cap for the grid-stride row loops: 132 SMs x 8 resident blocks of
 // 256 threads, times 4 so the tail of a wave stays short.
 constexpr int64_t kMaxBlocks = 132 * 8 * 4;
+// A block's most shared memory on sm_90: 227 KB.
+constexpr int64_t kMaxSmem = 232448;
+
+__host__ __device__ constexpr int64_t align128(int64_t x) {
+  return (x + 127) & ~int64_t{127};
+}
+
+// Lets Kernel take up to `limit` bytes of dynamic shared memory on
+// `device` (kMaxSmem less the kernel's static shared memory): raised once
+// a device, on the first launch that needs more than the default 48 KB.
+template <auto Kernel>
+cudaError_t allow_smem(int device, int64_t smem, int64_t limit = kMaxSmem) {
+  static int64_t allowed[64] = {};
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && allowed[device] < limit) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(limit));
+    if (e != cudaSuccess) return e;
+    allowed[device] = limit;
+  }
+  return cudaSuccess;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -32,13 +55,22 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// A read-only load: through the non-coherent path from device memory, a
+// plain load from shared memory (SHARED).
+template <bool SHARED, typename P>
+__device__ __forceinline__ P load_ro(const P* p) {
+  if constexpr (SHARED) return *p;
+  else return __ldg(p);
+}
+
 // One row of a row-major matrix dotted with an f32 vector by one warp, f32
 // accumulation.  With VEC each lane moves 16 bytes per load (4 f32 or
 // 8 bf16); the caller guarantees 16-byte alignment of every row.  Every
 // lane returns the same sum (the xor butterfly adds the same pairs on all
 // lanes), and every row takes the same path, so equal rows give equal
-// results bit for bit.
-template <typename T, bool VEC>
+// results bit for bit.  SHARED: the row and the vector lie in shared
+// memory (corr's wide route); the order is the same.
+template <typename T, bool VEC, bool SHARED = false>
 __device__ __forceinline__ float row_dot(const T* __restrict__ row,
                                          const float* __restrict__ v,
                                          int64_t d, int lane) {
@@ -49,16 +81,17 @@ __device__ __forceinline__ float row_dot(const T* __restrict__ row,
     const int64_t nv = d / V;
     const uint4* rv = reinterpret_cast<const uint4*>(row);
     for (int64_t j = lane; j < nv; j += 32) {
-      const uint4 raw = __ldg(rv + j);
+      const uint4 raw = load_ro<SHARED>(rv + j);
       const T* e = reinterpret_cast<const T*>(&raw);
       const float* vv = v + j * V;
 #pragma unroll
-      for (int q = 0; q < V; ++q) acc = fmaf(to_f32(e[q]), __ldg(vv + q), acc);
+      for (int q = 0; q < V; ++q)
+        acc = fmaf(to_f32(e[q]), load_ro<SHARED>(vv + q), acc);
     }
     tail = nv * V;
   }
   for (int64_t j = tail + lane; j < d; j += 32)
-    acc = fmaf(to_f32(row[j]), __ldg(v + j), acc);
+    acc = fmaf(to_f32(row[j]), load_ro<SHARED>(v + j), acc);
   return warp_sum(acc);
 }
 

@@ -9,7 +9,10 @@
 //                             optionally abs; mat shared (n, p) or
 //                             per-problem (B, n, p); base, mask (n, B))
 // corr_argmax launches the argmax's row tiles at B = 1 (kernels/corr.py:
-// corr_argmax_plan) for the pools they suit.
+// corr_argmax_plan), and corr those of rt_corr_batched at B = 1 (corr_plan,
+// route "rows"), for the pools they suit.  corr's pools may be bf16: the
+// row tiles take an element type (rt_corr_batched's dtype), bf16 at B = 1
+// only, its elements made f32 as a thread moves its row into registers.
 // Column b of corr_batched equals rt_corr(g, v[b]), and problem b's (index,
 // value) equals rt_corr_argmax on its slice, bit for bit: each dot product
 // is summed in row_dot's order (csrc/common.cuh), 16-byte or scalar as
@@ -38,16 +41,17 @@
 //    contiguous span of the row-major pool: thread 0 loads each into a
 //    shared-memory slot with one cp.async.bulk (its 16-byte-aligned
 //    middle, counted on the slot's mbarrier; the < 16-byte head and tail
-//    by plain loads), so the tile's bytes cost the threads no
-//    instructions.  A block of one tile takes one slot; a persistent wave
-//    of blocks walking several tiles takes a ring of two.  Each thread
-//    moves its rows into registers and replays the 32 lanes of row_dot
-//    for every problem it scores (Replay): no shuffles, no idle lanes at
-//    d = 65.  The B problem vectors sit in shared memory in the order the
-//    replay reads them, each read a 16-byte broadcast to the warp; those
-//    reads set the pace of a large batch, so there a thread holds two
-//    rows and each read serves both.  corr_batched stages a tile's (rows,
-//    B) outputs in shared memory and stores them as one contiguous span.
+//    by plain loads: BulkSpan, csrc/mbarrier.cuh), so the tile's bytes
+//    cost the threads no instructions.  A block of one tile takes one
+//    slot; a persistent wave of blocks walking several tiles takes a ring
+//    of two.  Each thread moves its rows into registers (as f32) and
+//    replays the 32 lanes of row_dot for every problem it scores
+//    (Replay): no shuffles, no idle lanes at d = 65.  The B problem
+//    vectors sit in shared memory in the order the replay reads them,
+//    each read a 16-byte broadcast to the warp; those reads set the pace
+//    of a large batch, so there a thread holds two rows and each read
+//    serves both.  corr_batched stages a tile's (rows, B) outputs in
+//    shared memory and stores them as one contiguous span.
 //    corr_argmax_batched reads a row's mask bytes first and scores only
 //    its live (row, problem) pairs: with per-class selection's one-hot
 //    class masks that is one dot product a row, not B.
@@ -138,11 +142,6 @@ __device__ __forceinline__ void finish_argmax(unsigned long long* keys,
 constexpr int kRowThreads = 128;  // threads a block
 constexpr int kRowMaxD = 96;      // widest row a thread keeps in registers
 constexpr int kMaxStages = 4;
-constexpr int64_t kMaxSmem = 232448;  // 227 KB, a block's most on sm_90
-
-__host__ __device__ constexpr int64_t align128(int64_t x) {
-  return (x + 127) & ~int64_t{127};
-}
 
 // Shared memory of a row-tile block, in bytes from the dynamic base, for
 // tiles of `rows` rows (kernels/corr.py: rows_smem mirrors the total for
@@ -155,18 +154,20 @@ __host__ __device__ constexpr int64_t align128(int64_t x) {
 //   keys      corr_argmax_batched: B x 128 running keys, one per (problem,
 //             thread); corr_batched: the tile's (rows, B) outputs at a row
 //             stride of B | 1 floats (odd: a warp's stores hit 32 banks);
-//   slots     `stages` ring slots of one tile each: rows x d f32 and 16
-//             bytes for the tile's offset from a 16-byte boundary.
+//   slots     `stages` ring slots of one tile each: rows x d elements of
+//             `itemsize` bytes and 16 bytes for the tile's offset from a
+//             16-byte boundary.
 struct RowLayout {
   int64_t v, keys, slot, slot_bytes, total;
   __host__ __device__ RowLayout(int64_t d, int64_t B, int64_t rows,
-                                int64_t stages, bool argmax) {
+                                int64_t stages, bool argmax,
+                                int64_t itemsize) {
     const int64_t vs = 32 * ((d + 31) / 32) + 12;
     v = 128;
     keys = align128(v + B * vs * 4);
     slot = align128(keys + (argmax ? B * kRowThreads * 8
                                    : rows * (B | 1) * 4));
-    slot_bytes = align128(rows * d * 4 + 16);
+    slot_bytes = align128(rows * d * itemsize + 16);
     total = slot + stages * slot_bytes;
   }
 };
@@ -210,10 +211,11 @@ __device__ __forceinline__ void unroll(F&& f) {
 //     columns before a one-element last column at slots p kCols ..
 //     p kCols + kCols - 1, so four lanes' elements are kCols float4 reads;
 //     with LAST = 1 that last element (lane 0's) sits after them;
-//   16-byte order (VEC, d % 4 == 0 and the pool 16-byte aligned): lane l
-//     chains elements 4l .. 4l + 3 (d <= 96 gives each lane at most one
-//     group, and row_dot no tail).  The vector is stored as it is.
-template <int KC, int LAST, bool VEC, int NR>
+//   16-byte order (VEC, d % V == 0 and the pool 16-byte aligned): lane l
+//     chains elements V l .. V l + V - 1, V = 4 f32 or 8 bf16 a 16-byte
+//     load (d <= 96 gives each lane at most one group, and row_dot no
+//     tail).  The vector is stored as it is.
+template <int KC, int LAST, bool VEC, int NR, int V = 4>
 struct Replay {
   static constexpr int kCols = LAST == 1 ? KC - 1 : KC;  // walk columns
   static constexpr int kSlots = 32 * KC;  // a row's registers (some unused)
@@ -229,16 +231,21 @@ struct Replay {
   __device__ __forceinline__ Sums leaf() {
     Sums acc{};
     if constexpr (VEC) {
-      // Lanes below 8 (KC - 1) always hold a group: d > 32 (KC - 1).
-      if constexpr (L < 8 * KC) {
-        if (L < 8 * (KC - 1) || 4 * L < d) {
-          const float4 q = reinterpret_cast<const float4*>(v)[L];
+      // Lanes below G (KC - 1) always hold a group: d > 32 (KC - 1).
+      constexpr int G = 32 / V;  // groups a column of 32 elements
+      if constexpr (L < G * KC) {
+        if (L < G * (KC - 1) || V * L < d) {
 #pragma unroll
-          for (int n = 0; n < NR; ++n) {
-            acc.x[n] = fmaf(r[n][4 * L + 0], q.x, acc.x[n]);
-            acc.x[n] = fmaf(r[n][4 * L + 1], q.y, acc.x[n]);
-            acc.x[n] = fmaf(r[n][4 * L + 2], q.z, acc.x[n]);
-            acc.x[n] = fmaf(r[n][4 * L + 3], q.w, acc.x[n]);
+          for (int h = 0; h < V / 4; ++h) {
+            const float4 q = reinterpret_cast<const float4*>(v)[V / 4 * L + h];
+            constexpr int j = V * L;
+#pragma unroll
+            for (int n = 0; n < NR; ++n) {
+              acc.x[n] = fmaf(r[n][j + 4 * h + 0], q.x, acc.x[n]);
+              acc.x[n] = fmaf(r[n][j + 4 * h + 1], q.y, acc.x[n]);
+              acc.x[n] = fmaf(r[n][j + 4 * h + 2], q.z, acc.x[n]);
+              acc.x[n] = fmaf(r[n][j + 4 * h + 3], q.w, acc.x[n]);
+            }
           }
         }
       }
@@ -300,7 +307,7 @@ __device__ __forceinline__ int vec_element(int s) {
 // Byte offset of a tile's first element from the 16-byte boundary below
 // it; the tile sits that far into its ring slot, so the slot and device
 // memory agree modulo 16 and the bulk copy's ends are 16-byte aligned.
-__device__ __forceinline__ int tile_phase(const float* p) {
+__device__ __forceinline__ int tile_phase(const void* p) {
   return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
 }
 
@@ -308,37 +315,25 @@ __device__ __forceinline__ int tile_phase(const float* p) {
 // the pool) into ring slot `slot`: the 16-byte-aligned middle by one bulk
 // copy, counted on `bar`, and the head before it and the tail after it
 // (< 16 bytes each) by plain loads.  (kernels/corr.py: tile_spans.)
-__device__ __forceinline__ void start_tile(const float* mat, int64_t n,
-                                           int d, int R, int64_t tile,
+template <typename T>
+__device__ __forceinline__ void start_tile(const T* mat, int64_t n, int d,
+                                           int R, int64_t tile,
                                            unsigned char* slot,
                                            uint32_t bar) {
   const int64_t r0 = tile * R;
   const int64_t rows = n - r0 < R ? n - r0 : R;
-  const float* src = mat + r0 * d;
-  const int phase = tile_phase(src);
-  float* dst = reinterpret_cast<float*>(slot + phase);
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
-  const uintptr_t e = a + static_cast<uintptr_t>(rows * d) * 4;
-  uintptr_t a16 = (a + 15) & ~uintptr_t{15};
-  a16 = a16 < e ? a16 : e;
-  uintptr_t e16 = e & ~uintptr_t{15};
-  e16 = e16 > a16 ? e16 : a16;
-  for (uintptr_t p = a; p < a16; p += 4)
-    dst[(p - a) / 4] = *reinterpret_cast<const float*>(p);
-  for (uintptr_t p = e16; p < e; p += 4)
-    dst[(p - a) / 4] = *reinterpret_cast<const float*>(p);
-  const uint32_t bytes = static_cast<uint32_t>(e16 - a16);
-  mbar_expect_tx(bar, bytes);
-  if (bytes > 0)
-    bulk_load(smem_u32(slot + phase + (a16 - a)),
-              reinterpret_cast<const void*>(a16), bytes, bar);
+  const BulkSpan<T> span(mat + r0 * d, rows * d, slot);
+  span.copy_ends();
+  mbar_expect_tx(bar, span.bulk_bytes());
+  span.bulk(bar);
 }
 
-// A row from its tile slot into registers (0 past d, and for a row past
-// the pool's last).
-template <int KC, int LAST, bool VEC>
-__device__ __forceinline__ void load_row(float (&r)[32 * KC],
-                                         const float* row, int d, bool in) {
+// A row from its tile slot into registers as f32 (0 past d, and for a row
+// past the pool's last).  The 16-byte order moves V = 16 / sizeof(T)
+// elements a load.
+template <int KC, int LAST, bool VEC, typename T>
+__device__ __forceinline__ void load_row(float (&r)[32 * KC], const T* row,
+                                         int d, bool in) {
   constexpr int kLen = 32 * (KC - 1) + LAST;  // the slots a row uses
   if (!in) {
 #pragma unroll
@@ -346,25 +341,26 @@ __device__ __forceinline__ void load_row(float (&r)[32 * KC],
     return;
   }
   if constexpr (VEC) {  // the row starts on a 16-byte boundary
+    constexpr int V = 16 / sizeof(T);
 #pragma unroll
-    for (int q = 0; q < kLen / 4; ++q) {
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (q < 8 * (KC - 1) || 4 * q < d)
-        x = reinterpret_cast<const float4*>(row)[q];
-      r[4 * q] = x.x;
-      r[4 * q + 1] = x.y;
-      r[4 * q + 2] = x.z;
-      r[4 * q + 3] = x.w;
+    for (int q = 0; q < kLen / V; ++q) {
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (q < 32 / V * (KC - 1) || V * q < d)
+        x = reinterpret_cast<const uint4*>(row)[q];
+      const T* e = reinterpret_cast<const T*>(&x);
+#pragma unroll
+      for (int k = 0; k < V; ++k) r[V * q + k] = to_f32(e[k]);
     }
   } else {
 #pragma unroll
     for (int j = 0; j < kLen; ++j)
-      r[j] = (LAST == 1 || j < 32 * (KC - 1) || j < d) ? row[j] : 0.f;
+      r[j] = (LAST == 1 || j < 32 * (KC - 1) || j < d) ? to_f32(row[j])
+                                                       : 0.f;
   }
 }
 
 struct RowArgs {
-  const float* mat;          // (n, d) shared pool
+  const void* mat;           // (n, d) shared pool, f32 (or bf16: corr)
   const float* v;            // (B, d) problem vectors
   int64_t n;
   int d, B;
@@ -403,17 +399,18 @@ __device__ __forceinline__ uint32_t live_bits(const uint8_t* mask, int64_t i,
 // thread walks its own live problems (reads of different vectors then
 // conflict in the banks, but with per-class selection's one-hot class
 // masks a row has one dot product, not B).
-template <int KC, int LAST, bool VEC, int NR, bool ARGMAX>
+template <typename E, int KC, int LAST, bool VEC, int NR, bool ARGMAX>
 __global__ void __launch_bounds__(kRowThreads, NR == 1 ? 4 : 3)
 row_tiles_kernel(const RowArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int T = kRowThreads;
   constexpr int kVs = 32 * KC + 12;  // odd in 16-byte units: spread banks
-  using Rp = Replay<KC, LAST, VEC, NR>;
+  using Rp = Replay<KC, LAST, VEC, NR, 16 / sizeof(E)>;
+  const E* mat = static_cast<const E*>(a.mat);
   const int t = threadIdx.x;
   const int d = a.d, B = a.B, R = a.rows, ST = a.stages, G = a.groups;
   const int P = T / G, g = t / P, u = t % P;
-  const RowLayout lay(d, B, R, ST, ARGMAX);
+  const RowLayout lay(d, B, R, ST, ARGMAX, sizeof(E));
   float* vs = reinterpret_cast<float*>(smem + lay.v);
   unsigned long long* keys =
       reinterpret_cast<unsigned long long*>(smem + lay.keys);
@@ -460,7 +457,7 @@ row_tiles_kernel(const RowArgs a) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     for (int64_t k = 0; k < mine && k < ST; ++k)
-      start_tile(a.mat, a.n, d, R, blockIdx.x + k * grid,
+      start_tile(mat, a.n, d, R, blockIdx.x + k * grid,
                  smem + lay.slot + k * lay.slot_bytes, full0 + 8 * k);
   }
   // Unrolled, so a thread's loads of the vectors are in flight together.
@@ -489,8 +486,8 @@ row_tiles_kernel(const RowArgs a) {
     }
     if (k > 0) prefetch(r0, rows);
     unsigned char* slot = smem + lay.slot + s * lay.slot_bytes;
-    const float* tile_rows = reinterpret_cast<const float*>(
-        slot + tile_phase(a.mat + r0 * d));
+    const E* tile_rows =
+        reinterpret_cast<const E*>(slot + tile_phase(mat + r0 * d));
     const uint32_t use = static_cast<uint32_t>((k / ST) & 1);
     mbar_wait(full0 + 8 * s, use);
     float r[NR][Rp::kSlots];
@@ -509,7 +506,7 @@ row_tiles_kernel(const RowArgs a) {
       mbar_arrive(empty0 + 8 * s);
       if (t == 0) {
         mbar_wait(empty0 + 8 * s, use);
-        start_tile(a.mat, a.n, d, R, tile + ST * grid, slot, full0 + 8 * s);
+        start_tile(mat, a.n, d, R, tile + ST * grid, slot, full0 + 8 * s);
       }
     }
 
@@ -882,22 +879,13 @@ void with_row_shape(int64_t d, F&& f) {
   else last(std::integral_constant<int, 3>{});
 }
 
-template <int KC, int LAST, bool VEC, int NR, bool ARGMAX>
+template <typename E, int KC, int LAST, bool VEC, int NR, bool ARGMAX>
 cudaError_t launch_row_tiles(const RowArgs& a, int device, int64_t grid,
                              int64_t smem, cudaStream_t s) {
-  // The dynamic shared memory this instantiation may take, per device:
-  // raised to the block's most once, on the first launch that needs it.
-  static int64_t allowed[64] = {};
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && allowed[device] < kMaxSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        row_tiles_kernel<KC, LAST, VEC, NR, ARGMAX>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMaxSmem));
-    if (e != cudaSuccess) return e;
-    allowed[device] = kMaxSmem;
-  }
-  row_tiles_kernel<KC, LAST, VEC, NR, ARGMAX>
+  const cudaError_t e =
+      allow_smem<row_tiles_kernel<E, KC, LAST, VEC, NR, ARGMAX>>(device, smem);
+  if (e != cudaSuccess) return e;
+  row_tiles_kernel<E, KC, LAST, VEC, NR, ARGMAX>
       <<<static_cast<unsigned int>(grid), kRowThreads,
          static_cast<size_t>(smem), s>>>(a);
   return cudaGetLastError();
@@ -905,22 +893,25 @@ cudaError_t launch_row_tiles(const RowArgs& a, int device, int64_t grid,
 
 // The row-tile route after the plan's checks: the layout must fit in a
 // block's shared memory; a ring of one slot only where every block has at
-// most one tile.
-template <bool ARGMAX>
+// most one tile.  A bf16 pool (E) takes one row a thread and B = 1.
+template <bool ARGMAX, typename E>
 cudaError_t row_tiles(const RowArgs& a, int device, int vec, int64_t grid,
                       cudaStream_t s) {
+  constexpr bool kF32 = std::is_same<E, float>::value;
   const int g = a.groups;
   const int nr = a.rows * g / kRowThreads;
   if (a.d < 1 || a.d > kRowMaxD || a.B < 1 || (g != 1 && g != 2 && g != 4) ||
       (nr != 1 && nr != 2) || a.rows * g != nr * kRowThreads ||
-      a.stages < 1 || a.stages > kMaxStages || grid < 1 || grid > INT_MAX)
+      a.stages < 1 || a.stages > kMaxStages || grid < 1 || grid > INT_MAX ||
+      (!kF32 && (ARGMAX || a.B != 1 || nr != 1)))
     return cudaErrorInvalidValue;
-  const int64_t smem = RowLayout(a.d, a.B, a.rows, a.stages, ARGMAX).total;
+  const int64_t smem =
+      RowLayout(a.d, a.B, a.rows, a.stages, ARGMAX, sizeof(E)).total;
   if (smem > kMaxSmem ||
       (a.stages == 1 && grid * a.rows < a.n))
     return cudaErrorInvalidValue;
   if (vec && (reinterpret_cast<uintptr_t>(a.mat) % 16 != 0 ||
-              a.d % 4 != 0 || nr != 1))
+              a.d % (16 / sizeof(E)) != 0 || nr != 1))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   with_row_shape(a.d, [&](auto kc, auto last) {
@@ -928,20 +919,24 @@ cudaError_t row_tiles(const RowArgs& a, int device, int vec, int64_t grid,
     constexpr int LAST = decltype(last)::value;
     auto go = [&](auto two) {
       constexpr int NR = decltype(two)::value ? 2 : 1;
-      // The 16-byte order (d % 4 == 0, never LAST 1) takes one row a
+      // The 16-byte order (d % V == 0, never LAST 1) takes one row a
       // thread.
       if constexpr (LAST == 1 || NR == 2) {
-        e = launch_row_tiles<KC, LAST, false, NR, ARGMAX>(a, device, grid,
-                                                          smem, s);
+        e = launch_row_tiles<E, KC, LAST, false, NR, ARGMAX>(a, device, grid,
+                                                             smem, s);
       } else {
-        e = vec ? launch_row_tiles<KC, LAST, true, NR, ARGMAX>(
+        e = vec ? launch_row_tiles<E, KC, LAST, true, NR, ARGMAX>(
                       a, device, grid, smem, s)
-                : launch_row_tiles<KC, LAST, false, NR, ARGMAX>(
+                : launch_row_tiles<E, KC, LAST, false, NR, ARGMAX>(
                       a, device, grid, smem, s);
       }
     };
-    if (nr == 2) go(std::true_type{});
-    else go(std::false_type{});
+    if constexpr (kF32) {
+      if (nr == 2) go(std::true_type{});
+      else go(std::false_type{});
+    } else {
+      go(std::false_type{});
+    }
   });
   return e;
 }
@@ -954,19 +949,21 @@ using namespace repro_torch;
 
 extern "C" {
 
-// g (n, d) f32, v (B, d) f32, out (n, B) f32.  vec: 1 when g's rows start
-// on 16-byte boundaries and d is a multiple of 4 (as rt_corr's vec).
+// g (n, d) f32 (dtype 0) or bf16 (dtype 1: the row tiles at B = 1 only),
+// v (B, d) f32, out (n, B) f32.  vec: 1 when g's rows start on 16-byte
+// boundaries and d is a multiple of the 16-byte vector (as rt_corr's vec).
 // route 1: row tiles of `rows` rows, `groups` problem groups (threads
 // sharing a row's problems; rows x groups / 128 rows a thread), `stages`
 // ring slots; route 0: warps.  grid: the plan's blocks.
-int rt_corr_batched(int device, const float* g, const float* v, float* out,
-                    int64_t n, int64_t d, int64_t B, int vec, int route,
-                    int rows, int groups, int stages, int64_t grid,
+int rt_corr_batched(int device, const void* g, int dtype, const float* v,
+                    float* out, int64_t n, int64_t d, int64_t B, int vec,
+                    int route, int rows, int groups, int stages, int64_t grid,
                     void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || B > INT_MAX || grid < 1 || grid > INT_MAX)
+  if (B < 1 || B > INT_MAX || grid < 1 || grid > INT_MAX ||
+      (dtype != 0 && (dtype != 1 || route != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1) {
     RowArgs a{};
@@ -979,16 +976,19 @@ int rt_corr_batched(int device, const float* g, const float* v, float* out,
     a.groups = groups;
     a.stages = stages;
     a.out = out;
-    return static_cast<int>(row_tiles<false>(a, device, vec, grid, s));
+    return static_cast<int>(
+        dtype == 1 ? row_tiles<false, __nv_bfloat16>(a, device, vec, grid, s)
+                   : row_tiles<false, float>(a, device, vec, grid, s));
   }
+  const float* gf = static_cast<const float*>(g);
   with_chunk(B, [&](auto bc) {
     constexpr int BC = decltype(bc)::value;
     const unsigned int blocks = static_cast<unsigned int>(grid);
     if (vec)
-      corr_batched_kernel<BC, true><<<blocks, kThreads, 0, s>>>(g, v, out, n,
-                                                                d, B);
+      corr_batched_kernel<BC, true><<<blocks, kThreads, 0, s>>>(gf, v, out,
+                                                                n, d, B);
     else
-      corr_batched_kernel<BC, false><<<blocks, kThreads, 0, s>>>(g, v, out,
+      corr_batched_kernel<BC, false><<<blocks, kThreads, 0, s>>>(gf, v, out,
                                                                  n, d, B);
   });
   return static_cast<int>(cudaGetLastError());
@@ -1031,7 +1031,7 @@ int rt_corr_argmax_batched(int device, const float* mat, const float* w,
     a.keys = keys;
     a.idx = idx;
     a.val = val;
-    return static_cast<int>(row_tiles<true>(a, device, vec, grid, s));
+    return static_cast<int>(row_tiles<true, float>(a, device, vec, grid, s));
   }
   with_chunk(B, [&](auto bc) {
     constexpr int BC = decltype(bc)::value;

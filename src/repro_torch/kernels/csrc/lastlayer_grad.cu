@@ -88,11 +88,6 @@ constexpr int kTileThreads = 128;
 constexpr int kTileMaxRows = 128;   // rows a tile: one softmax a thread
 constexpr int kTileMaxC = 32;       // classes: one term a lane
 constexpr int kTileMaxStages = 2;
-constexpr int64_t kMaxSmem = 232448;  // 227 KB, a block's most on sm_90
-
-__host__ __device__ constexpr int64_t align128(int64_t x) {
-  return (x + 127) & ~int64_t{127};
-}
 
 // Shared memory of a tile block, in bytes from its base
 // (kernels/lastlayer_grad.py: tile_smem mirrors the total):
@@ -290,17 +285,8 @@ __global__ void __launch_bounds__(kTileThreads) lastlayer_tiles_kernel(
 template <typename L>
 cudaError_t launch_tiles(const TileArgs& a, int device, int64_t grid,
                          int64_t smem, cudaStream_t s) {
-  // Raised to the block's most once per device, on the first launch that
-  // needs more than the default 48 KB.
-  static int64_t allowed[64] = {};
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && allowed[device] < kMaxSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        lastlayer_tiles_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMaxSmem));
-    if (e != cudaSuccess) return e;
-    allowed[device] = kMaxSmem;
-  }
+  const cudaError_t e = allow_smem<lastlayer_tiles_kernel<L>>(device, smem);
+  if (e != cudaSuccess) return e;
   lastlayer_tiles_kernel<L><<<static_cast<unsigned int>(grid), kTileThreads,
                               static_cast<size_t>(smem), s>>>(a);
   return cudaGetLastError();

@@ -1,7 +1,8 @@
 // mbarrier and bulk-copy helpers shared by the port's Hopper kernels
 // (sm_90a): barrier set-up, arrivals with a transaction count, a parity
 // wait that traps instead of hanging, and the plain (non-tensor) bulk copy
-// of contiguous bytes from device memory into shared memory.
+// of contiguous bytes from device memory into shared memory, whole or as a
+// span of elements at any alignment (BulkSpan).
 #pragma once
 
 #include <stdint.h>
@@ -70,5 +71,42 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
+
+// `count` elements of T from `src` (device memory) placed in shared memory
+// at `slot` plus src's offset from a 16-byte boundary, so the two agree
+// modulo 16: the 16-byte-aligned middle by one bulk copy (bulk(), counted
+// on a barrier that expects bulk_bytes()), the head before it and the tail
+// after it (< 16 bytes each) by plain loads (copy_ends()).  One thread
+// issues both; the readers find the span at `dst`.
+template <typename T>
+struct BulkSpan {
+  uintptr_t a, a16, e16, e;
+  unsigned char* dst;
+  __device__ __forceinline__ BulkSpan(const T* src, int64_t count,
+                                      unsigned char* slot) {
+    a = reinterpret_cast<uintptr_t>(src);
+    e = a + static_cast<uintptr_t>(count) * sizeof(T);
+    a16 = (a + 15) & ~uintptr_t{15};
+    a16 = a16 < e ? a16 : e;
+    e16 = e & ~uintptr_t{15};
+    e16 = e16 > a16 ? e16 : a16;
+    dst = slot + (a & 15);
+  }
+  __device__ __forceinline__ uint32_t bulk_bytes() const {
+    return static_cast<uint32_t>(e16 - a16);
+  }
+  __device__ __forceinline__ void copy_ends() const {
+    T* out = reinterpret_cast<T*>(dst);
+    for (uintptr_t p = a; p < a16; p += sizeof(T))
+      out[(p - a) / sizeof(T)] = *reinterpret_cast<const T*>(p);
+    for (uintptr_t p = e16; p < e; p += sizeof(T))
+      out[(p - a) / sizeof(T)] = *reinterpret_cast<const T*>(p);
+  }
+  __device__ __forceinline__ void bulk(uint32_t bar) const {
+    if (e16 > a16)
+      bulk_load(smem_u32(dst + (a16 - a)), reinterpret_cast<const void*>(a16),
+                bulk_bytes(), bar);
+  }
+};
 
 }  // namespace repro_torch

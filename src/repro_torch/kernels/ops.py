@@ -53,13 +53,14 @@ def launch_shapes() -> dict[tuple, int]:
 
 _ROUTES = (("lastlayer_grad", llg_kernel.lastlayer_routes),
            ("bound_max", corr_kernel.bound_routes),
+           ("corr", corr_kernel.corr_routes),
            ("corr_argmax", corr_kernel.argmax_routes),
            ("sqdist", sqdist_kernel.sqdist_routes))
 
 
 def launch_routes() -> dict[str, int]:
-    """``lastlayer_grad``, ``bound_max``, ``corr_argmax`` and ``sqdist``
-    launches since the last ``reset_launch_counts``, by route
+    """``lastlayer_grad``, ``bound_max``, ``corr``, ``corr_argmax`` and
+    ``sqdist`` launches since the last ``reset_launch_counts``, by route
     ("kernel/route")."""
     return {f"{kernel}/{route}": n for kernel, routes in _ROUTES
             for route, n in routes.items()}

@@ -49,12 +49,12 @@ def test_plans_mirror_the_kernels_constants():
     assert _constant("lastlayer_grad.cu", "kTileMaxRows") == (
         llg_kernel.TILE_MAX_ROWS)
     assert _constant("lastlayer_grad.cu", "kTileMaxC") == llg_kernel.TILE_MAX_C
-    assert _constant("lastlayer_grad.cu", "kMaxSmem") == llg_kernel.BLOCK_SMEM
+    assert _constant("common.cuh", "kMaxSmem") == llg_kernel.BLOCK_SMEM
     assert _constant("bound_max.cu", "kBoundRows") == corr_kernel.BOUND_ROWS
     assert _constant("bound_max.cu", "kBoundMaxTiles") == (
         corr_kernel.BOUND_MAX_TILES)
     assert corr_kernel.BOUND_SMEM == corr_kernel.BLOCK_SMEM - 1024
-    assert "constexpr int64_t kMaxSmem = 232448 - 1024;" in (
+    assert "constexpr int64_t kBoundSmem = kMaxSmem - 1024;" in (
         CSRC / "bound_max.cu").read_text()
     # the workspace's three words, a 128-byte line each, inside its size
     done = _constant("bound_max.cu", "kWsDone")
@@ -65,9 +65,9 @@ def test_plans_mirror_the_kernels_constants():
                         ("kOtfMaxStages", fl_kernel.OTF_MAX_STAGES),
                         ("kOtfMaxK8", fl_kernel.OTF_MAX_K8),
                         ("kOtfStaticSmem", fl_kernel.OTF_STATIC_SMEM),
-                        ("kAlignSlack", fl_kernel.OTF_ALIGN_SLACK),
-                        ("kMaxSmem", fl_kernel.BLOCK_SMEM)):
+                        ("kAlignSlack", fl_kernel.OTF_ALIGN_SLACK)):
         assert _constant("fl_gain_tc.cu", name) == value, name
+    assert _constant("common.cuh", "kMaxSmem") == fl_kernel.BLOCK_SMEM
     assert _constant("fl_gain_tc.cu", "kWsDone") + 1 == (
         fl_kernel.OTF_WS_WORDS)
     assert _constant("dot_tile.cuh", "kTileJ") == fl_kernel.FFMA_COLS

@@ -1511,3 +1511,171 @@ def test_corr_argmax_workspace_per_stream_and_after_a_failure(
     for route in ("rows", "warps"):
         gi, gv = corr_kernel.corr_argmax(c, w, base, mask, route=route)
         assert torch.equal(gi, want[0]) and torch.equal(gv, want[1])
+
+
+# ---------------------------------------------------------------------------
+# corr's routes (csrc/corr.cu warps and wide, corr_batched.cu row tiles at B 1)
+# ---------------------------------------------------------------------------
+
+# d <= 96 (the row tiles: scalar lanes at 65, 16-byte lanes at 8 / 12 / 96
+# where aligned), wider (the wide route: 16-byte lanes where aligned), the
+# streaming arenas' widths and the LM's candidates.
+CORR_ROUTED = [(1, 1), (7, 65), (33, 8), (129, 96), (703, 10), (4097, 12),
+               (45000, 65), (88064, 10), (129, 97), (300, 512), (1000, 700),
+               (16, 2048), (16, 3584), (3, 40000)]
+
+
+def _corr_case(dev, n, d, dtype, aligned, seed):
+    """An (n, d) pool of ``dtype`` that starts on a 16-byte boundary, or 4
+    bytes past one, and an f32 residual."""
+    rng = np.random.default_rng(seed)
+    t = getattr(torch, dtype)
+    off = 0 if aligned else 4 // torch.empty((), dtype=t).element_size()
+    buf = _t(rng.standard_normal(n * d + off).astype(np.float32), dev).to(t)
+    r = _t(rng.standard_normal(d).astype(np.float32), dev)
+    return buf[off:].view(n, d), r
+
+
+def _corr_routes(g, r):
+    """Each route whose layout takes ``g``, by name."""
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    out = []
+    for route in ("rows", "wide", "warps"):
+        try:
+            corr_kernel.corr_plan(*g.shape, g.element_size(), g.data_ptr(),
+                                  sms, route)
+        except ValueError:
+            continue
+        out.append(route)
+    return out
+
+
+@pytest.mark.parametrize("n,d", CORR_ROUTED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_corr_routes_equal_the_warps(dev, n, d, dtype, aligned):
+    """Every route that takes the pool gives the warp kernel's bits, from a
+    pool on a 16-byte boundary and from one 4 bytes past it; the plan's
+    route is one of them, and the plain version agrees within the f32 dot
+    rounding."""
+    g, r = _corr_case(dev, n, d, dtype, aligned, n + d)
+    warps = corr_kernel.corr(g, r, route="warps")
+    routes = _corr_routes(g, r)
+    got = {route: corr_kernel.corr(g, r, route=route) for route in routes}
+    plan = corr_kernel.corr(g, r)
+    torch.cuda.synchronize()
+    for route, s in got.items():
+        assert torch.equal(s, warps), route
+    assert torch.equal(plan, warps)
+    if d <= corr_kernel.ROW_MAX_D:
+        assert "rows" in routes
+    if d <= 8192:
+        assert "wide" in routes
+    want = ref.corr_ref(g, r)
+    scale = float(torch.sqrt((g.float() ** 2).sum(1).max() * (r ** 2).sum()))
+    np.testing.assert_allclose(plan.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6 * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("d", [10, 65, 700])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_corr_row_independent_of_position(dev, d, dtype):
+    """A row's score depends on that row alone: the same bits whether it
+    sits in a (1, d), a (1 024, d) or an (88 064, d) matrix, at any place,
+    on any route (the streaming engine's buffers, chunks and arenas and the
+    in-memory solver score the same rows at all three)."""
+    big, r = _corr_case(dev, 88064, d, dtype, True, d)
+    whole = corr_kernel.corr(big, r)
+    for i in (0, 1, 127, 128, 5000, 88063):
+        lo = min(i, 88064 - 1024)
+        mats = (big[i:i + 1].clone(), big[lo:lo + 1024].clone(), big)
+        for m, at in zip(mats, (0, i - lo, i)):
+            for route in [None] + _corr_routes(m, r):
+                s = corr_kernel.corr(m, r, route=route)
+                assert torch.equal(s[at], whole[i]), (i, m.shape, route)
+
+
+@pytest.mark.parametrize("n,d,b", [(45000, 65, 10), (45000, 65, 32),
+                                   (4097, 12, 5), (45000, 10, 10)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_corr_batched_columns_equal_corr_on_the_rows_route(dev, n, d, b,
+                                                           aligned):
+    """Column b of corr_batched equals corr on vecs[b] launched on the row
+    tiles at B = 1, and on the warps."""
+    g, _ = _corr_case(dev, n, d, "float32", aligned, n + b)
+    v = _t(np.random.default_rng(b).standard_normal((b, d)).astype(
+        np.float32), dev)
+    got = corr_kernel.corr_batched(g, v)
+    for route in ("rows", "warps"):
+        single = torch.stack([corr_kernel.corr(g, v[j], route=route)
+                              for j in range(b)], 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, single), route
+
+
+def _graph_nodes(fn):
+    """(the device operations one call of ``fn`` enqueues, its output): the
+    nodes of a CUDA graph that captures the call, and what the graph's
+    replay gives (deterministic, where a profiler trace late in a long
+    process can come back empty); ``fn`` runs once before, uncaptured."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    count = ctypes.c_size_t(0)
+    code = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    assert code == 0, code
+    return count.value, out
+
+
+@pytest.mark.parametrize("n,d,dtype", [(45000, 65, "float32"),
+                                       (88064, 10, "bfloat16"),
+                                       (16, 3584, "float32"),
+                                       (1000, 700, "bfloat16"),
+                                       (703, 10, "float32")])
+def test_corr_one_device_operation_a_call(dev, n, d, dtype):
+    """A call is one device operation on every route that takes the pool,
+    and the captured call gives the same bits."""
+    g, r = _corr_case(dev, n, d, dtype, True, 3)
+    want = corr_kernel.corr(g, r, route="warps")
+    for route in _corr_routes(g, r):
+        nodes, got = _graph_nodes(lambda: corr_kernel.corr(g, r,
+                                                           route=route))
+        assert nodes == 1 and torch.equal(got, want), (route, nodes)
+
+
+def test_corr_plan_on_the_card_counts_routes(dev):
+    """The plan's picks, counted by route: the main path's (45 000, 65) and
+    the bf16 arenas the row tiles, GRAD-MATCH-PB's (703, 10), one row and
+    the wide regime's (8 192, 512) the warps, the LM's candidates the wide
+    route; a forced route that cannot take the pool raises before anything
+    launches."""
+    before = dict(corr_kernel.corr_routes)
+    for n, d, dtype, route in ((45000, 65, "float32", "rows"),
+                               (88064, 10, "bfloat16", "rows"),
+                               (86016, 65, "bfloat16", "rows"),
+                               (703, 10, "float32", "warps"),
+                               (1, 65, "float32", "warps"),
+                               (16, 2048, "float32", "wide"),
+                               (16, 3584, "float32", "wide"),
+                               (8192, 512, "float32", "warps")):
+        g, r = _corr_case(dev, n, d, dtype, True, 5)
+        corr_kernel.corr(g, r)
+        before[route] += 1
+        assert corr_kernel.corr_routes == before, (n, d, dtype)
+    launched = corr_kernel.launches["corr"]
+    g, r = _corr_case(dev, 16, 3584, "float32", True, 5)
+    with pytest.raises(ValueError, match="rows route"):
+        corr_kernel.corr(g, r, route="rows")
+    g, r = _corr_case(dev, 2, 60000, "float32", True, 5)
+    with pytest.raises(ValueError, match="wide route"):
+        corr_kernel.corr(g, r, route="wide")
+    with pytest.raises(ValueError, match="no route"):
+        corr_kernel.corr(g, r, route="tiles")
+    assert corr_kernel.launches["corr"] == launched
+    assert corr_kernel.corr_routes == before

@@ -4,7 +4,8 @@ comparing two trees on one card in turns.
 
     python3 tools/kernel_turns.py [--src DIR] [--save FILE] [--compare FILE]
                                   [--kernels fl_gain_argmax_otf,corr_argmax,
-                                             corr_argmax_batched,sqdist]
+                                             corr_argmax_batched,sqdist,corr]
+                                  [--stream tree|current] [--host-ab DIR]
     python3 tools/kernel_turns.py --routes [--kernels ...]
     python3 tools/kernel_turns.py --picks [--src DIR] [--save F] [--compare F]
                                   [--kernels ...]
@@ -24,6 +25,16 @@ seed with numpy, so two trees see the same bits.  ``--kernels`` names them
   off a 16-byte boundary; planted ties; all masked) and the LM's (16, 4),
   each also by its wall time a call on the host (``wall_us``: calls queued
   back to back, the host's work a call where it exceeds the card's);
+- ``corr`` at every shape ``chip_smoke.py``'s ``kernels`` phase holds it
+  at (``CORR_CASES``: the main path's (45 000, 65), GRAD-MATCH-PB's
+  (703, 10), the stream paths' buffers (768, 10 or 65), the merges'
+  unions, the wide regime's (8 192, 512) in f32 and bf16, a ragged
+  (1 000, 700), the bf16 arenas (88 064, 10) and (86 016, 65), the LM's
+  candidates (16, 2 048) and (16, 3 584)) and at the stream paths' one
+  row, each with ``wall_us``, ``torch.mv``'s time (``mv_ms``), the bound
+  and the route the tree's plan gives it; first a line with the host
+  cost of the stream handle a wrapper passes its kernel, through
+  ``torch.cuda.current_stream`` and as the raw handle;
 - ``corr_argmax_batched`` at ``chip_smoke.py``'s ``kernels_batched``
   cases: the main path's (45 000, 65) pool with B = 10 class masks, plain
   and ``abs``; B = 32 with random masks; the wide regime's per-problem
@@ -39,14 +50,27 @@ seed with numpy, so two trees see the same bits.  ``--kernels`` names them
   digest of its bits with its diagonal and first and last rows.
 
 ``--save`` keeps the outputs, ``--compare`` says whether they equal a saved
-run's bit for bit.  To compare a parent commit with this one, unpack it
+run's bit for bit.  ``--stream current`` has every wrapper take its stream
+handle through ``torch.cuda.current_stream``, as the wrappers did before
+they passed the raw handle, so that a tree's ``wall_us`` can be split
+between the handle and the rest of its host path.  With ``corr``,
+``--host-ab DIR`` loads ``DIR``'s ``kernels/corr.py`` beside this tree's,
+bound to this tree's library, stream handle and checks, and at each case
+both wrappers launch the warp kernel times, interleaved in one process:
+this tree's wrapper, ``DIR``'s, and this tree's with the handle through
+``torch.cuda.current_stream`` (``wall_us``, ``other_wall_us``,
+``current_wall_us``); each case also gives the plan lookup's own host
+cost (``plan_us``: ``corr_plan`` and ``sm_count`` a call).  To compare a parent commit with this one, unpack it
 under the git-ignored ``build/`` (``git archive``) and run it and this tree
 in turns (parent, change, change, parent), each in its own process: each
 tree builds its own library.  Device times as ``chip_smoke.py`` takes them
 (``device_ms``).
 
 ``--routes`` times both routes of the named kernels of this checkout beside
-the route each plan picks: ``corr_argmax`` over n at widths 10 and 65 and
+the route each plan picks: ``corr``'s three over n at widths 10 and 65 in
+f32 and bf16, aligned and 4 bytes off, and over n at widths past 96 (the
+row tiles against the warps, the wide route against the warps, each with
+``torch.mv``); ``corr_argmax`` over n at widths 10 and 65 and
 over the width at 45 000 rows, from an aligned pool and from one off a
 16-byte boundary; ``fl_gain_argmax_otf`` over d and n; ``lastlayer_grad``
 and ``bound_max`` over n, d and C; ``sqdist`` over n, d, the dtype and
@@ -131,6 +155,37 @@ FL_SHAPES = ((45_000, 65), (45_000, 10))
 SQ_CASES = ((45_000, 45_000, 65, "float32"), (4_097, 1_000, 130, "bfloat16"),
             (129, 65, 3, "float32"))
 DEFAULT_KERNELS = "fl_gain_argmax_otf,corr_argmax"
+# corr's shapes: chip_smoke.py's kernels phase, then the stream paths' one
+# row (rows, d, dtype).
+CORR_CASES = ((45_000, 65, "float32"), (703, 10, "float32"),
+              (768, 10, "float32"), (768, 65, "float32"),
+              (900, 10, "float32"), (512, 65, "float32"),
+              (8_192, 512, "float32"), (8_192, 512, "bfloat16"),
+              (1_000, 700, "float32"), (88_064, 10, "bfloat16"),
+              (86_016, 65, "bfloat16"), (16, 2_048, "float32"),
+              (16, 3_584, "float32"), (1, 10, "float32"),
+              (1, 65, "float32"))
+
+
+def corr_inputs(torch, np, n, d, dt, dev, offset=0):
+    """A pool of ``dt`` (its first element ``offset`` elements past an
+    allocation's start) and an f32 residual, from a seed."""
+    rng = np.random.default_rng(n + d)
+    buf = torch.from_numpy(rng.standard_normal(n * d + offset).astype(
+        np.float32)).to(dev).to(getattr(torch, dt))
+    r = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(dev)
+    return buf[offset:].view(n, d), r
+
+
+def corr_bound_ms(torch, g) -> float:
+    """The least time of ``corr`` on ``g`` on this card
+    (``chip_smoke.bound_of``): its bytes (the pool, the residual, the
+    scores) or its multiply-adds, whichever take longer."""
+    from chip_smoke import bound_of
+    n, d = g.shape
+    card = {"name": torch.cuda.get_device_name(g.device)}
+    return bound_of(card, n * d * g.element_size() + 4 * d + 4 * n,
+                    2 * n * d)[0]
 
 
 def fl_inputs(torch, np, n, d, dev):
@@ -264,6 +319,71 @@ def wall_us(torch, fn, calls: int = 2000) -> float:
     return (time.perf_counter() - t0) / calls * 1e6
 
 
+def host_us(fn, calls: int = 100_000) -> float:
+    """Host microseconds a call of ``fn`` (nothing on the card)."""
+    import time
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def current_stream_handles(torch) -> None:
+    """Every kernel wrapper of the imported tree takes its stream handle
+    through ``torch.cuda.current_stream`` (a Python Stream object a
+    call)."""
+    import importlib
+    kargs = importlib.import_module("repro_torch.kernels.args")
+    tree_stream = kargs.stream
+
+    def stream(device):
+        return torch.cuda.current_stream(device).cuda_stream
+
+    for name in ("args", "corr", "fl_gain", "lastlayer_grad", "sqdist"):
+        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        if getattr(mod, "stream", None) is tree_stream:
+            mod.stream = stream
+
+
+def host_ab(torch, corr_k, other_src: Path, g, r, dt: str,
+            rounds: int = 10) -> None:
+    """``corr``'s wall time a call from this tree's wrapper, from
+    ``other_src``'s (its ``kernels/corr.py`` bound to this tree's library,
+    handle and checks) and from this tree's with a Stream object's handle,
+    interleaved in one process, on the warp kernel both launch."""
+    import importlib.util
+    if not hasattr(host_ab, "other"):
+        spec = importlib.util.spec_from_file_location(
+            "host_ab_corr", other_src / "repro_torch/kernels/corr.py")
+        host_ab.other = importlib.util.module_from_spec(spec)
+        sys.modules["host_ab_corr"] = host_ab.other   # for its dataclasses
+        spec.loader.exec_module(host_ab.other)
+    other = host_ab.other
+    dev = g.device
+    tree_stream = corr_k.stream
+
+    def current(device):
+        return torch.cuda.current_stream(device).cuda_stream
+
+    if not torch.equal(corr_k.corr(g, r), other.corr(g, r)):
+        raise AssertionError(f"corr {tuple(g.shape)}: the wrappers' bits "
+                             "differ")
+    out = {"wall_us": [], "other_wall_us": [], "current_wall_us": []}
+    for _ in range(rounds):
+        out["wall_us"].append(wall_us(torch, lambda: corr_k.corr(g, r)))
+        out["other_wall_us"].append(wall_us(torch, lambda: other.corr(g, r)))
+        corr_k.stream = current
+        try:
+            out["current_wall_us"].append(
+                wall_us(torch, lambda: corr_k.corr(g, r)))
+        finally:
+            corr_k.stream = tree_stream
+    torch.cuda.current_stream(dev).synchronize()
+    print(json.dumps({"kernel": "corr", "host_ab": str(other_src),
+                      "shape": list(g.shape), "dtype": dt, **out}),
+          flush=True)
+
+
 def turns(torch, np, device_ms, args) -> None:
     from repro_torch.kernels import corr as corr_k
     from repro_torch.kernels import fl_gain as fl_k
@@ -280,7 +400,8 @@ def turns(torch, np, device_ms, args) -> None:
             extra["wall_us"] = [wall_us(torch, fn)
                                 for _ in range(args.repeats)]
         print(json.dumps({"kernel": kernel, "shape": shape, **extra,
-                          "src": str(args.src), "ms": ms}), flush=True)
+                          "src": str(args.src), "stream": args.stream,
+                          "ms": ms}), flush=True)
 
     if "fl_gain_argmax_otf" in args.kernels:
         for n, d in FL_SHAPES:
@@ -288,6 +409,31 @@ def turns(torch, np, device_ms, args) -> None:
             timed("fl_gain_argmax_otf", f"fl_gain_argmax_otf {n} {d}",
                   [n, d], lambda: fl_k.fl_gain_argmax_otf(
                       g, cover, rok, mask, lm, sqnorms=sq), reps=10)
+    if "corr" in args.kernels:
+        # The stream handle every wrapper passes its kernel: through a
+        # Stream object, or as the raw handle (microseconds a call).
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        print(json.dumps({"stream_handle_us": {
+            "current_stream": host_us(lambda: torch.cuda.current_stream(
+                dev).cuda_stream),
+            "raw": host_us(lambda: raw(dev.index or 0)) if raw else None}}),
+            flush=True)
+        plan_of = getattr(corr_k, "corr_plan", None)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for n, d, dt in CORR_CASES:
+            g, r = corr_inputs(torch, np, n, d, dt, dev)
+            route = (plan_of(n, d, g.element_size(), g.data_ptr(), sms).route
+                     if plan_of else "warps")
+            plan_us = (host_us(lambda: plan_of(
+                n, d, g.element_size(), g.data_ptr(), corr_k.sm_count(dev)))
+                if plan_of else None)
+            mv = device_ms(torch, lambda: torch.mv(g, r.to(g.dtype)))
+            timed("corr", f"corr {n} {d} {dt}", [n, d],
+                  lambda: corr_k.corr(g, r), wall=True, dtype=dt,
+                  route=route, plan_us=plan_us, mv_ms=mv,
+                  bound_ms=corr_bound_ms(torch, g))
+            if args.host_ab and route == "warps":
+                host_ab(torch, corr_k, args.host_ab, g, r, dt)
     if "corr_argmax" in args.kernels:
         for name, c, w, base, mask, ab in argmax_cases(torch, np, dev):
             timed("corr_argmax", f"corr_argmax {name}", list(c.shape),
@@ -445,6 +591,38 @@ def routes(torch, np, device_ms, args) -> None:
     from repro_torch.kernels import lastlayer_grad as llg_k
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if "corr" in args.kernels:
+        narrow = [(n, d, dt, off) for d in (10, 65)
+                  for dt in ("float32", "bfloat16")
+                  for n in (512, 1024, 2048, 4096, 6144, 8192, 10240, 12288,
+                            14336, 16384, 20480, 24576, 32768, 45000, 88064)
+                  for off in (0, 1)]
+        wide = [(n, d, dt, 0)
+                for d in (128, 256, 384, 512, 700, 1024, 2048, 3584, 4096)
+                for dt in ("float32", "bfloat16")
+                for n in (1, 16, 64, 128, 192, 256, 384, 512, 768, 1000,
+                          8192, 32768, 131072)
+                if n * d <= 2 ** 26]
+        for n, d, dt, off in narrow + wide:
+            g, r = corr_inputs(torch, np, n, d, dt, dev, off)
+            ms = {}
+            for route in ("rows", "wide", "warps"):
+                try:
+                    corr_k.corr_plan(n, d, g.element_size(), g.data_ptr(),
+                                     sms, route)
+                except ValueError:
+                    continue
+                ms[route] = device_ms(torch, lambda: corr_k.corr(
+                    g, r, route=route))
+            plan = corr_k.corr_plan(n, d, g.element_size(), g.data_ptr(),
+                                    sms)
+            print(json.dumps({"kernel": "corr", "shape": [n, d], "dtype": dt,
+                              "aligned": off == 0, "ms": ms,
+                              "mv_ms": device_ms(torch, lambda: torch.mv(
+                                  g, r.to(g.dtype))),
+                              "bound_ms": corr_bound_ms(torch, g),
+                              "plan": plan.route}), flush=True)
+            del g
     if "corr_argmax" in args.kernels:
         shapes = [(n, p) for p in (10, 65)
                   for n in (256, 703, 1024, 2048, 4096, 8192, 12288, 16384,
@@ -557,8 +735,11 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--kernels", default=DEFAULT_KERNELS,
                     help="comma-separated: fl_gain_argmax_otf, corr_argmax, "
-                    "corr_argmax_batched, lastlayer_grad, bound_max, sqdist")
+                    "corr_argmax_batched, lastlayer_grad, bound_max, sqdist, "
+                    "corr")
     ap.add_argument("--routes", action="store_true")
+    ap.add_argument("--stream", choices=("tree", "current"), default="tree")
+    ap.add_argument("--host-ab", type=Path)
     ap.add_argument("--picks", action="store_true")
     args = ap.parse_args()
     args.kernels = set(args.kernels.split(","))
@@ -571,6 +752,8 @@ def main() -> int:
     sys.path.insert(1, str(ROOT))
     from chip_smoke import device_ms
     import repro_torch  # noqa: F401  (turns TF32 off)
+    if args.stream == "current":
+        current_stream_handles(torch)
     if args.routes:
         routes(torch, np, device_ms, args)
     elif args.picks:
