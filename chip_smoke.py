@@ -209,6 +209,24 @@ Phases, one JSON line each:
               5e-2 of max |logit|, every super-block's shared-block cache
               written by decode; at f32, cut as the driver is, within
               1e-5.  The serving paths of both phases reach no kernel;
+ 17. lm_xlstm (after ``lm_hybrid``) the same driver checks on xlstm-1.3b at
+              its widths (d 2 048, mLSTM d_in 4 096, chunk 256, vocab
+              50 304) cut to one super-block (7 mLSTM + 1 sLSTM),
+              ``hidden_grad_tc`` on its tied (512, 50 432, 2 048) head;
+              one weighted step timed between syncs and traced (the
+              card's busy share) and the sLSTM layer alone on the step's
+              shapes (forward, remat, backward: its launches, a
+              host-issued step's launches and its share of the step);
+              then at full depth (48 layers) ``serve.main`` at its
+              defaults and decode against the forward at batch 2, 32 ->
+              48 and 512 -> 528 (two mLSTM chunks; the forward over 528
+              tokens at chunk 176), each held to the f32 forward of the
+              same weights; at 48 layers, 32 -> 48, f64 decode against
+              the f64 forward within 1e-9 (the two paths compute one
+              function; f32's distance is rounding) and f32 decode no
+              further from the f64 forward than the f32 forward is; at
+              f32, cut as the driver is, within 1e-4.  Its serving paths
+              reach no kernel;
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -407,6 +425,24 @@ HYBRID_BATCH = 2
 HYBRID_LONG_PROMPT = 512            # two SSD chunks of 256
 HYBRID_LONG_CHUNK = 176             # the forward's chunk at 528 = 3 x 176
 HYBRID_BF16_LIMIT = 5e-2            # the reference's decode test's limit
+# lm_xlstm: xlstm-1.3b at its widths (d 2 048, 4 heads, mLSTM d_in 4 096
+# with dk 256 and dv 1 024, chunk 256, vocab 50 304 padded to 50 432, tied
+# head), the driver's depth cut to one super-block (7 mLSTM + 1 sLSTM: at
+# all 6, 48 layers, its 40 steps took 130 s, a step 3.0 s, PERF.md run
+# MA); served at full depth (48 layers).
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_ARGV = ["--arch", XLSTM_ARCH, "--steps", "40"]
+XLSTM_TRAIN_SUPERBLOCKS = 1
+XLSTM_BATCH = 2
+XLSTM_LONG_PROMPT = 512             # two mLSTM chunks of 256
+XLSTM_LONG_CHUNK = 176              # the forward's chunk at 528 = 3 x 176
+XLSTM_BF16_LIMIT = 5e-2             # the reference's decode test's limit
+XLSTM_F32_LIMIT = 1e-4              # decode vs forward at f32, 8 layers
+# decode vs forward at 48 layers and f64: rounding there is f32's scaled
+# by the unit roundoffs (6e-8 to 1.1e-16: 6.0e-2 and 1.88e-10 of max
+# |logit|, PERF.md run MD), a mismatch between the two paths is not
+XLSTM_F64_LIMIT = 1e-9
+XLSTM_TRACE_STEPS = 3               # weighted steps timed after a warm-up
 
 
 def emit(phase: str, **kw) -> None:
@@ -638,11 +674,12 @@ def phase_build() -> None:
           "(C7520 in the build log)")
 
 
-def device_ops(torch, fn) -> int:
-    """Device operations (kernels, memsets, copies) one call of ``fn``
-    makes, by ``torch.profiler``; ``fn`` runs once before, untraced.  A
-    trace with no device record at all lost its records (every call traced
-    here launches), and is taken again, up to three times."""
+def device_spans(torch, fn) -> list:
+    """The (start, end) microseconds of the device operations (kernels,
+    memsets, copies) one call of ``fn`` makes, by ``torch.profiler``;
+    ``fn`` runs once before, untraced.  A trace with no device record at
+    all lost its records (every call traced here launches), and is taken
+    again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -650,11 +687,17 @@ def device_ops(torch, fn) -> int:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        ops = sum(e.device_type == torch.autograd.DeviceType.CUDA
-                  for e in prof.events())
-        if ops:
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
             break
-    return ops
+    return spans
+
+
+def device_ops(torch, fn) -> int:
+    """Device operations one call of ``fn`` makes (``device_spans``)."""
+    return len(device_spans(torch, fn))
 
 
 def phase_kernels(torch, np, card: dict) -> dict:
@@ -4389,16 +4432,22 @@ def phase_lm(torch, np, card: dict, records: dict) -> dict:
 
 
 def teacher_forced(torch, cfg, model, tok, s0: int, fwd_cfg=None,
-                   state_check=None):
+                   state_check=None, lm=None):
     """Prefill ``tok[:, :s0]``, seat it into ``tok.shape[1]`` slots and
     decode the rest of ``tok`` a token at a time; and the train-mode
     forward over all of ``tok`` (under ``fwd_cfg`` where given: another
-    SSD chunk, for a length the config's chunk does not divide).  Returns
-    both packages' logits over the real vocabulary at positions s0 - 1 ..
-    S - 1, f32, (B, S - s0 + 1, V) each; ``state_check`` sees the decode
-    state after the last step."""
+    SSD or mLSTM chunk, for a length the config's chunk does not divide).
+    Returns both paths' logits over the real vocabulary at positions
+    s0 - 1 .. S - 1, f32 (f64 from an f64 model), (B, S - s0 + 1, V)
+    each; ``state_check`` sees the decode state after the last step.
+    ``lm``: the LM module to run (default ``repro_torch.models.lm``;
+    ``f64_lm()`` for the f64 witness)."""
     from repro_torch.launch.serve import _seat
-    from repro_torch.models import lm
+    if lm is None:
+        from repro_torch.models import lm
+
+    def wide(x):
+        return x.to(torch.promote_types(x.dtype, torch.float32))
 
     b, s = tok.shape
     v = cfg.vocab_size
@@ -4406,11 +4455,11 @@ def teacher_forced(torch, cfg, model, tok, s0: int, fwd_cfg=None,
         logits, pstate = lm.prefill_step(cfg, model, tok[:, :s0])
         state = _seat(lm.init_decode_state(cfg, b, s, tok.device), pstate)
         del pstate
-        dec = [logits[:, :v].float()]
+        dec = [wide(logits[:, :v])]
         for t in range(s0, s):
             logits, state = lm.decode_step(cfg, model, state,
                                            tok[:, t:t + 1], t)
-            dec.append(logits[:, :v].float())
+            dec.append(wide(logits[:, :v]))
         if state_check is not None:
             state_check(state)
         del state
@@ -4418,7 +4467,82 @@ def teacher_forced(torch, cfg, model, tok, s0: int, fwd_cfg=None,
         h, _, _ = lm.forward(fcfg, model, tok)
         fwd = lm.mask_padded_logits(fcfg, lm._head_out(fcfg, model,
                                                        h[:, s0 - 1:]))
-    return torch.stack(dec, dim=1), fwd[..., :v].float()
+    return torch.stack(dec, dim=1), wide(fwd[..., :v])
+
+
+def f64_lm():
+    """A copy of ``repro_torch.models.lm`` whose ``lm``, ``common`` and
+    ``xlstm`` sources run with their f32 casts made f64, so that an f64
+    model computes in f64 throughout (the witness that decode and the
+    forward compute one function, apart from rounding)."""
+    import inspect
+    import types
+
+    from repro_torch.configs.base import MLSTM, SLSTM
+    from repro_torch.models import common, lm, xlstm
+
+    def f64(module):
+        src = inspect.getsource(module).replace(".float()", ".double()")
+        src = src.replace("torch.float32", "torch.float64")
+        out = types.ModuleType(module.__name__ + "_f64")
+        exec(compile(src, out.__name__, "exec"), out.__dict__)
+        return out
+
+    lm64, xl64 = f64(lm), f64(xlstm)
+    lm64.common = f64(common)
+    for kind in (MLSTM, SLSTM):
+        lm64._MIXERS[kind] = tuple(getattr(xl64, fn.__name__)
+                                   for fn in lm._MIXERS[kind])
+    return lm64
+
+
+def decode_deep_witness(torch, cfg32, model32, model, tok, s0: int,
+                        what: str, phase: str) -> dict:
+    """Teacher-forced decode against the train-mode forward at full depth,
+    at f32 (``model32``) and at f64 (``model``'s weights widened, through
+    ``f64_lm``).  At f64 the two are held within ``XLSTM_F64_LIMIT`` of
+    max |logit|, which a real mismatch between decode and the forward
+    would not meet; the f32 decode is held no further from the f64
+    forward than 1.25x the f32 forward's own distance (f32's rounding,
+    grown over the depth).  Their f32 distance is reported."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec32, fwd32 = teacher_forced(torch, cfg32, model32, tok, s0)
+    cfg64 = cfg32.replace(param_dtype="float64")
+    model64 = copy.deepcopy(model).double()
+    dec64, fwd64 = teacher_forced(torch, cfg64, model64, tok, s0,
+                                  lm=f64_lm())
+    torch.cuda.synchronize()
+    del model64
+    check(dec64.dtype == torch.float64, f"{what}: the f64 witness ran in "
+          f"{dec64.dtype}")
+    scale32, scale64 = float(fwd32.abs().max()), float(fwd64.abs().max())
+
+    def rel(a, b, scale):
+        return float((a - b).abs().max()) / scale
+
+    out = dict(what=what, batch=tok.shape[0], prompt=s0, s_max=tok.shape[1],
+               layers=cfg32.n_layers,
+               f64_decode_vs_forward=rel(dec64, fwd64, scale64),
+               f64_limit=XLSTM_F64_LIMIT,
+               f32_decode_vs_forward=rel(dec32, fwd32, scale32),
+               f32_forward_vs_f64=rel(fwd32, fwd64, scale64),
+               f32_decode_vs_f64=rel(dec32, fwd64, scale64),
+               argmax_equal_f32=float((dec32.argmax(-1) == fwd32.argmax(-1))
+                                      .float().mean()),
+               max_abs_logit_f64=scale64,
+               seconds=time.perf_counter() - t0)
+    emit(phase, **out)
+    check(bool(torch.isfinite(dec64).all() and torch.isfinite(dec32).all()),
+          f"{what}: decode logits not finite")
+    check(out["f64_decode_vs_forward"] <= XLSTM_F64_LIMIT, f"{what}: f64 "
+          f"decode vs forward {out['f64_decode_vs_forward']} of max |logit| "
+          f"(limit {XLSTM_F64_LIMIT})")
+    bound = 1.25 * out["f32_forward_vs_f64"]
+    check(out["f32_decode_vs_f64"] <= bound, f"{what}: f32 decode "
+          f"{out['f32_decode_vs_f64']} of max |logit| from the f64 forward, "
+          f"the f32 forward {out['f32_forward_vs_f64']} (bound {bound})")
+    return out
 
 
 class RouteRecorder:
@@ -4568,15 +4692,25 @@ def decode_vs_forward(torch, cfg, model, tok, s0: int, limit: float,
     return out
 
 
+def with_chunk(cfg, chunk: int):
+    """``cfg`` with its recurrent chunk set to ``chunk``: the SSD's, or
+    the mLSTM's."""
+    if cfg.ssm is not None:
+        return cfg.replace(ssm=replace(cfg.ssm, chunk=chunk))
+    return cfg.replace(xlstm=replace(cfg.xlstm, chunk=chunk))
+
+
 def decode_vs_f32(torch, cfg, model, cfg32, model32, tok, s0: int,
                   limit: float, what: str, phase: str, chunk: int,
                   state_check=None) -> dict:
     """bf16 decode against the bf16 forward (``teacher_forced``, the
-    forward at SSD chunk ``chunk``), and both against the forward of the
-    same weights at f32 (``model32``).  Rounding makes the two bf16 runs
-    part by more with depth (zamba2: 1.5e-2 of max |logit| at 9 layers,
-    6.4e-2 at 81; at f32 4.7e-6 and 1.7e-5; ``tools/lm_decode_probe.py
-    --depth`` on an NVIDIA H100 80GB HBM3 at 700 W).  So decode is held to
+    forward at the SSD's or mLSTM's chunk ``chunk``), and both against the
+    forward of the same weights at f32 (``model32``).  Rounding makes the
+    two bf16 runs part by more with depth (zamba2: 1.5e-2 of max |logit|
+    at 9 layers, 6.4e-2 at 81, at f32 4.7e-6 and 1.7e-5; xlstm-1.3b from
+    random weights: 5.8e-2 at 8 layers, 0.905 at 48, at f32 1.17e-5 and
+    1.11e-3; ``tools/lm_decode_probe.py --depth`` on an NVIDIA H100 80GB
+    HBM3 at 700 W).  So decode is held to
     be as close to the f32 forward as the bf16 forward is: within
     ``limit`` of max |logit|, or 1.25x the forward's own distance where
     that is wider.  Its distance from the bf16 forward is reported beside
@@ -4585,9 +4719,9 @@ def decode_vs_f32(torch, cfg, model, cfg32, model32, tok, s0: int,
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fcfg = cfg.replace(ssm=replace(cfg.ssm, chunk=chunk))
+    fcfg = with_chunk(cfg, chunk)
     dec, fwd = teacher_forced(torch, cfg, model, tok, s0, fcfg, state_check)
-    c32 = cfg32.replace(ssm=replace(cfg32.ssm, chunk=chunk))
+    c32 = with_chunk(cfg32, chunk)
     with torch.no_grad():
         h, _, _ = lm.forward(c32, model32, tok)
         true = lm._head_out(c32, model32, h[:, s0 - 1:])[
@@ -4985,10 +5119,11 @@ def lm_driver(torch, np, phase: str, path: str, cfg, argv) -> dict:
                     "selection_seconds": {path: rep["selection_s"]}}}
 
 
-def hold_untied_head(torch, card: dict, records: dict, phase: str,
-                     path: str, cfg, model, cand) -> dict:
-    """``hidden_grad_tc`` on a real candidate of an untied head (W =
-    ``lm_head`` (d, V), contiguous): the path's route, against the plain
+def hold_head(torch, card: dict, records: dict, phase: str, path: str, cfg,
+              model, cand) -> dict:
+    """``hidden_grad_tc`` on a real candidate of the model's head (untied:
+    W = ``lm_head`` (d, V), contiguous; tied: W = ``embed.T``, the
+    transpose of a contiguous (V, d)): the path's route, against the plain
     version within ``LM_HG_LIMIT`` of max |out|, the same bits twice,
     timed beside the plain version and cuBLAS's f32 product of the
     materialised residual; the record of ``path``."""
@@ -5006,9 +5141,10 @@ def hold_untied_head(torch, card: dict, records: dict, phase: str,
     w = lm.head_weight(cfg, model).detach()
     n, v = z.shape
     dh = w.shape[0]
-    check(not cfg.tie_embeddings and w.is_contiguous(),
-          f"{cfg.name}'s head is not an untied contiguous (d, V) matrix")
-    check(llg_k.takes_tensor_cores(z.dtype, w.dtype, n, v, dh, False,
+    tied = cfg.tie_embeddings
+    check((w.T if tied else w).is_contiguous(), f"{cfg.name}'s head is "
+          f"not {'embed.T' if tied else 'a contiguous (d, V) lm_head'}")
+    check(llg_k.takes_tensor_cores(z.dtype, w.dtype, n, v, dh, tied,
                                    z.data_ptr(), w.data_ptr()),
           f"the {path} path's hidden_grad call is not routed to the tensor "
           "cores")
@@ -5043,7 +5179,8 @@ def hold_untied_head(torch, card: dict, records: dict, phase: str,
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                bound_by=by, library_ms=lib_ms, shape=[n, v, dh])
     emit("kernels", kernel="hidden_grad_tc", path=path, dtype="bfloat16",
-         layout="lm_head (untied head)", max_abs_out=scale,
+         layout="embed.T (tied head)" if tied else "lm_head (untied head)",
+         max_abs_out=scale,
          rel_err=err / scale, limit=LM_HG_LIMIT, same_bits=same_bits,
          **{k: rec[k] for k in rec if k != "max_abs_err"}, max_abs_err=err)
     check(err <= LM_HG_LIMIT * scale, f"hidden_grad_tc vs plain at ({n}, "
@@ -5171,8 +5308,8 @@ def phase_lm_moe(torch, np, card: dict, records: dict) -> dict:
                          n_shards=args.window, device=dev)
     last_round = (args.steps - 1) // args.select_every
     cand = stream.batch(last_round, 0)
-    head = hold_untied_head(torch, card, records, "lm_moe", "lm_moe", cfg,
-                            model, cand)
+    head = hold_head(torch, card, records, "lm_moe", "lm_moe", cfg, model,
+                     cand)
     lm_select_and_omp(torch, card, records, "lm_moe", "lm_moe",
                       make_lm_proxy_step(cfg, model), stream, args,
                       last_round)
@@ -5296,8 +5433,8 @@ def phase_lm_hybrid(torch, np, card: dict, records: dict) -> dict:
                          n_shards=args.window, device=dev)
     last_round = (args.steps - 1) // args.select_every
     cand = stream.batch(last_round, 0)
-    head = hold_untied_head(torch, card, records, "lm_hybrid", "lm_hybrid",
-                            cfg, model, cand)
+    head = hold_head(torch, card, records, "lm_hybrid", "lm_hybrid", cfg,
+                     model, cand)
     lm_select_and_omp(torch, card, records, "lm_hybrid", "lm_hybrid",
                       make_lm_proxy_step(cfg, model), stream, args,
                       last_round)
@@ -5396,6 +5533,230 @@ def phase_lm_hybrid(torch, np, card: dict, records: dict) -> dict:
     check(not any(counts.values()), f"the hybrid serving paths launched "
           f"{counts}")
     return {**run, "head": head, "decode": res}
+
+
+def xlstm_step_trace(torch, cfg, model, batch, lr: float) -> dict:
+    """Where an xLSTM weighted step's time goes: a weighted SGD step
+    (``lm_train_step_fn``, remat as configured) and the sLSTM layers
+    alone on the step's shapes (each one's mixer on a (B, T, d) input
+    under ``checkpoint`` as the super-block's remat runs it: the forward,
+    its recomputation and the backward), each timed between syncs, in
+    turns, ``XLSTM_TRACE_STEPS`` times after a warm-up (medians); then
+    one of each under ``torch.profiler``: the device operations it
+    launches and the card's busy time (the union of their intervals).
+    The sLSTM's share of the step is its median over the step's, and its
+    operations over the step's."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.configs.base import SLSTM
+    from repro_torch.models import xlstm
+    from repro_torch.optim import sgd
+    from repro_torch.train.steps import lm_train_step_fn
+
+    opt = sgd(model.parameters(), lr, momentum=0.9)
+    step = lm_train_step_fn(cfg, model, opt)
+
+    def seconds(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def device_busy(fn):
+        """(device operations, busy seconds: the union of their spans) of
+        one traced call."""
+        spans = device_spans(torch, fn)
+        check(bool(spans), "a traced xLSTM call left no device record")
+        busy, end = 0.0, spans[0][0]
+        for a, b in spans:
+            a = max(a, end)
+            if b > a:
+                busy += b - a
+                end = b
+        return len(spans), busy / 1e6
+
+    si = cfg.layer_pattern.index(SLSTM)
+    mixers = [bp[f"sub{si}"]["mixer"] for bp in model["blocks"]]
+    b, t = batch["tokens"].shape
+    gen = torch.Generator(device=batch["tokens"].device).manual_seed(0)
+    dev, dt = batch["tokens"].device, next(model.parameters()).dtype
+    x = torch.randn((b, t, cfg.d_model), generator=gen, device=dev).to(dt)
+    up = torch.randn((b, t, cfg.d_model), generator=gen, device=dev).to(dt)
+
+    def slstm_layers():
+        for p in mixers:
+            xx = x.detach().requires_grad_()
+            y = checkpoint(lambda v, p=p: xlstm.slstm_apply(cfg, p, v)[0],
+                           xx, use_reentrant=False)
+            y.backward(up)
+
+    # in turns, so that the host's drift falls on both alike
+    times = [(seconds(lambda: step(batch)), seconds(slstm_layers))
+             for _ in range(XLSTM_TRACE_STEPS + 1)][1:]
+    step_s = statistics.median(t for t, _ in times)
+    slstm_s = statistics.median(t for _, t in times)
+    step_ops, step_busy = device_busy(lambda: step(batch))
+    slstm_ops, slstm_busy = device_busy(slstm_layers)
+    model.zero_grad(set_to_none=True)
+    del opt, step
+    host_steps = len(mixers) * t
+    return dict(step_seconds=step_s, step_device_ops=step_ops,
+                step_device_busy_s=step_busy,
+                device_busy_share=step_busy / step_s,
+                slstm_layers=len(mixers), slstm_host_steps=host_steps,
+                slstm_seconds=slstm_s, slstm_device_ops=slstm_ops,
+                slstm_ops_a_host_step=slstm_ops / host_steps,
+                slstm_device_busy_s=slstm_busy,
+                slstm_share_of_step=slstm_s / step_s,
+                slstm_share_of_step_ops=slstm_ops / step_ops)
+
+
+def phase_lm_xlstm(torch, np, card: dict, records: dict) -> dict:
+    """xLSTM through the port's LM entry points on the card.  The driver
+    (``train.main``, ``XLSTM_ARGV``) on xlstm-1.3b at its widths and
+    ``XLSTM_TRAIN_SUPERBLOCKS`` super-blocks; ``hidden_grad_tc`` on a real
+    candidate of its tied head; one selection with the kernels and one
+    with the plain versions, ``corr`` / ``corr_argmax`` at the path's
+    shapes; two weighted steps repeated bit for bit; a step's time and
+    the sLSTM recurrence's share of it (``xlstm_step_trace``).  Then at
+    full depth ``serve.main`` at its defaults and teacher-forced decode
+    against the train-mode forward at batch ``XLSTM_BATCH``, 32 -> 48 and
+    512 -> 528 (two mLSTM chunks in the prefill; the forward over 528
+    tokens takes chunks of ``XLSTM_LONG_CHUNK``), each held against the
+    f32 forward of the same weights (``decode_vs_f32``), every layer's
+    state finite after decode; 32 -> 48 at f32 and f64, decode against
+    the forward of its own dtype (``decode_deep_witness``); each greedy
+    token against the forward's argmax; and at f32, cut as the driver is,
+    32 -> 48 within ``XLSTM_F32_LIMIT``.  The serving paths reach no
+    kernel of the port."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.common import count_params
+    from repro_torch.train.steps import make_lm_proxy_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    full = get_config(XLSTM_ARCH)
+    cut = dict(n_superblocks=XLSTM_TRAIN_SUPERBLOCKS,
+               n_layers=len(full.layer_pattern) * XLSTM_TRAIN_SUPERBLOCKS)
+    cfg = full.replace(**cut)
+    drv = lm_driver(torch, np, "lm_xlstm", "lm_xlstm", cfg, XLSTM_ARGV)
+    model, args = drv["model"], drv["args"]
+    stream = TokenStream(seed=args.seed, batch_per_shard=args.micro_batch,
+                         seq_len=args.seq_len, vocab=cfg.vocab_size,
+                         n_shards=args.window, device=dev)
+    last_round = (args.steps - 1) // args.select_every
+    cand = stream.batch(last_round, 0)
+    head = hold_head(torch, card, records, "lm_xlstm", "lm_xlstm", cfg,
+                     model, cand)
+    lm_select_and_omp(torch, card, records, "lm_xlstm", "lm_xlstm",
+                      make_lm_proxy_step(cfg, model), stream, args,
+                      last_round)
+    batch = dict(cand)
+    batch["weights"] = torch.full((args.micro_batch,),
+                                  1.0 / args.micro_batch, device=dev)
+    det = weighted_steps_repeat(torch, cfg, model, batch, args.lr)
+    emit("lm_xlstm", what="determinism", **det)
+    check(det["same_bits"], f"two weighted xLSTM steps from the same "
+          f"start gave other bits: {det}")
+    trace = xlstm_step_trace(torch, cfg, model, batch, args.lr)
+    emit("lm_xlstm", path="lm_xlstm-trace", smi=card["smi"], **trace)
+    run = drv["run"]
+    del model, drv, batch, cand, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serving at full depth
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_lm(full, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(model)
+    r = serve.main(["--arch", XLSTM_ARCH], model=model)
+    emit("lm_xlstm", what="serve.main", arch=full.name,
+         layers=full.n_layers, params=n_params, init_seconds=init_s,
+         smi=card["smi"], report=r, tok_per_s=r["tok_per_s"],
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(r["requests"] == 8 and r["tokens"] == 8 * SERVE_LM_GEN,
+          f"serve.main served {r}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res, states = {}, {}
+
+    def finite_states(s0):
+        def look(state):
+            leaves = [v for blk in state["blocks"] for sub in blk.values()
+                      for v in sub.values()]
+            states[s0] = dict(leaves=len(leaves), finite=all(
+                bool(torch.isfinite(v).all()) for v in leaves))
+        return look
+
+    # the same weights at f32: the forward the bf16 runs are held to
+    f32_full = full.replace(param_dtype="float32")
+    model32 = copy.deepcopy(model).float()
+    toks = {}
+    for s0 in (SERVE_LM_PROMPT, XLSTM_LONG_PROMPT):
+        s_tot = s0 + SERVE_LM_GEN
+        toks[s0] = torch.randint(0, full.vocab_size, (XLSTM_BATCH, s_tot),
+                                 generator=gen, device=dev,
+                                 dtype=torch.int32)
+        chunk = (XLSTM_LONG_CHUNK if s_tot % min(full.xlstm.chunk, s_tot)
+                 else full.xlstm.chunk)
+        res[s0] = decode_vs_f32(
+            torch, full, model, f32_full, model32, toks[s0], s0,
+            XLSTM_BF16_LIMIT,
+            f"{XLSTM_ARCH} bf16, {full.n_layers} layers, {s0} -> {s_tot}",
+            "lm_xlstm", chunk, finite_states(s0))
+    # the bf16 checks above can be met by a decode as far from the forward
+    # as the bf16 forward is from f32 (0.84 of max |logit| at 48 layers):
+    # at f64 the two paths are held to each other at full depth
+    res["deep"] = decode_deep_witness(
+        torch, f32_full, model32, model, toks[SERVE_LM_PROMPT],
+        SERVE_LM_PROMPT, f"{XLSTM_ARCH} f32 and f64, {full.n_layers} "
+        f"layers", "lm_xlstm")
+    del model32, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("lm_xlstm", what="decode states", **{
+        str(k): v for k, v in states.items()})
+    for s0, st in states.items():
+        check(st["finite"], f"decode from {s0}: a layer's state is not "
+              f"finite: {st}")
+    gen_tok = torch.randint(0, full.vocab_size,
+                            (XLSTM_BATCH, SERVE_LM_PROMPT), generator=gen,
+                            device=dev, dtype=torch.int32)
+    greedy_vs_forward(torch, full, model, gen_tok, XLSTM_BF16_LIMIT,
+                      "lm_xlstm")
+    res["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, gen_tok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32, cut as the driver is
+    f32 = full.replace(param_dtype="float32", **cut)
+    model = lm.init_lm(f32, torch.Generator(device=dev).manual_seed(0), dev)
+    tok = torch.randint(0, f32.vocab_size,
+                        (XLSTM_BATCH, SERVE_LM_PROMPT + SERVE_LM_GEN),
+                        generator=gen, device=dev, dtype=torch.int32)
+    res["f32"] = decode_vs_forward(
+        torch, f32, model, tok, SERVE_LM_PROMPT, XLSTM_F32_LIMIT,
+        f"{XLSTM_ARCH} f32, {f32.n_layers} layers", phase="lm_xlstm")
+    del model, tok
+    counts = ops.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("lm_xlstm", what="phase", serve_launches=counts,
+         seconds=time.perf_counter() - t_phase)
+    check(not any(counts.values()), f"the xLSTM serving paths launched "
+          f"{counts}")
+    return {**run, "head": head, "trace": trace, "decode": res}
 
 
 def kernels_line(torch, records: dict, runs) -> list:
@@ -5532,7 +5893,8 @@ def main() -> int:
     run("lm_optim", phase_lm_optim, torch, np)
     mo = run("lm_moe", phase_lm_moe, torch, np, card, records)
     hy = run("lm_hybrid", phase_lm_hybrid, torch, np, card, records)
-    runs = (tr, ba, cr, st, pa, sv, lm_, mo, hy)
+    xl = run("lm_xlstm", phase_lm_xlstm, torch, np, card, records)
+    runs = (tr, ba, cr, st, pa, sv, lm_, mo, hy, xl)
     kernels = run("kernels_line", kernels_line, torch, records, runs)
     emit("done", seconds=time.perf_counter() - t_start, phases=phase_s)
     print(card["smi"])

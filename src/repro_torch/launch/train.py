@@ -2,7 +2,9 @@
 ``repro/launch/train.py``.
 
 ``--arch <id>`` selects an architecture (``--smoke`` for the reduced config;
-the port runs the dense attention archs).  The loop is the reference's:
+the port runs the dense attention archs, the MoE archs, zamba2-7b and
+xlstm-1.3b, and refuses the ``xattn`` and encoder-only ones).  The loop is
+the reference's:
 
   - a stateless-indexed token stream (``data/tokens.py``);
   - GRAD-MATCHPB candidate selection every R *steps* over a window of W

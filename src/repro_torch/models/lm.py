@@ -3,10 +3,11 @@ loss / prefill / decode / selection proxy.
 
 The port covers the attention layer kinds (``attn``, ``local``,
 ``global``) with a dense FFN or a Mixture-of-Experts (``models/moe.py``),
-and the Mamba2 hybrid (``mamba2`` sub-layers, ``models/ssm.py``, and
-zamba2's ``shared_attn`` block): the dense archs (gemma-2b, gemma2-9b,
-starcoder2-3b, codeqwen1.5-7b), the MoE archs (qwen3-moe-30b-a3b,
-moonshot-v1-16b-a3b) and zamba2-7b, in the reference's three modes:
+the Mamba2 hybrid (``mamba2`` sub-layers, ``models/ssm.py``, and zamba2's
+``shared_attn`` block) and xLSTM (``mlstm`` and ``slstm`` sub-layers,
+``models/xlstm.py``): the dense archs (gemma-2b, gemma2-9b, starcoder2-3b,
+codeqwen1.5-7b), the MoE archs (qwen3-moe-30b-a3b, moonshot-v1-16b-a3b),
+zamba2-7b and xlstm-1.3b, in the reference's three modes:
 
   - ``train``:   stateless forward, recomputed per super-block with remat;
   - ``prefill``: forward that also returns the decode state;
@@ -14,7 +15,9 @@ moonshot-v1-16b-a3b) and zamba2-7b, in the reference's three modes:
     writes in place (``prefill_step`` / ``decode_step``, under
     ``no_grad``).
 
-``mlstm``, ``slstm``, ``xattn`` and encoder-only heads raise
+A recurrent sub-layer (``mamba2``, ``mlstm``, ``slstm``) is ``norm1``, the
+mixer and the residual; its decode state has the same shapes in prefill
+and decode.  ``xattn`` and encoder-only heads raise
 ``NotImplementedError`` (ROADMAP queue 1, "The rest of the LM side").  The
 decode state is a dict like the reference's, with ``blocks`` a list of
 super-blocks where the reference stacks them.
@@ -45,14 +48,14 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (ATTN, GLOBAL, LOCAL, MAMBA,
-                                      SHARED_ATTN, ModelConfig)
+from repro_torch.configs.base import (ATTN, GLOBAL, LOCAL, MAMBA, MLSTM,
+                                      SHARED_ATTN, SLSTM, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.core import proxies as proxy_lib
-from repro_torch.models import attention, common, ffn, moe, ssm
+from repro_torch.models import attention, common, ffn, moe, ssm, xlstm
 from repro_torch.models.common import ParamTree, dtype_of
 
-_PORTED_KINDS = (ATTN, LOCAL, GLOBAL, SHARED_ATTN, MAMBA)
+_PORTED_KINDS = (ATTN, LOCAL, GLOBAL, SHARED_ATTN, MAMBA, MLSTM, SLSTM)
 _LATER = 'ROADMAP queue 1, "The rest of the LM side"'
 
 
@@ -82,10 +85,22 @@ class LM(ParamTree):
 # Init
 # ---------------------------------------------------------------------------
 
+# the recurrent mixers: (init, full-sequence apply, one-token decode, decode
+# state)
+_MIXERS = {
+    MAMBA: (ssm.init_mamba, ssm.mamba_apply, ssm.mamba_decode,
+            ssm.init_state),
+    MLSTM: (xlstm.init_mlstm, xlstm.mlstm_apply, xlstm.mlstm_decode,
+            xlstm.init_mlstm_state),
+    SLSTM: (xlstm.init_slstm, xlstm.slstm_apply, xlstm.slstm_decode,
+            xlstm.init_slstm_state),
+}
+
+
 def _init_sublayer(cfg: ModelConfig, kind: str, device, generator) -> dict:
-    if kind == MAMBA:
+    if kind in _MIXERS:
         return {"norm1": common.init_norm(cfg, device),
-                "mixer": ssm.init_mamba(cfg, device, generator)}
+                "mixer": _MIXERS[kind][0](cfg, device, generator)}
     p = {
         "norm1": common.init_norm(cfg, device),
         "attn": attention.init_attention(cfg, device, generator),
@@ -176,11 +191,11 @@ def params_from_jax(cfg: ModelConfig, params: Mapping[str, object],
 
 def _init_substate(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                    device: torch.device) -> dict:
-    """Decode state of one sub-layer (zeros; prefill overwrites): the
-    Mamba2 state, or the attention caches (each shared_attn invocation
-    its own)."""
-    if kind == MAMBA:
-        return ssm.init_state(cfg, batch, device)
+    """Decode state of one sub-layer (zeros; prefill overwrites): a
+    recurrent mixer's state, or the attention caches (each shared_attn
+    invocation its own)."""
+    if kind in _MIXERS:
+        return _MIXERS[kind][3](cfg, batch, device)
     window = cfg.sliding_window if kind == LOCAL else None
     return attention.init_decode_cache(cfg, batch, s_max, window=window,
                                        device=device)
@@ -218,12 +233,13 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, p, x: torch.Tensor, *,
     """Returns (x_out, the sub-layer's new state or None, its MoE aux loss
     or None)."""
     h = common.norm_apply(cfg, p["norm1"], x)
-    if kind == MAMBA:
+    if kind in _MIXERS:
+        _, apply, decode, _ = _MIXERS[kind]
         if mode == "decode":
-            y, new_state = ssm.mamba_decode(cfg, p["mixer"], h, state)
+            y, new_state = decode(cfg, p["mixer"], h, state)
         else:
-            y, new_state = ssm.mamba_apply(cfg, p["mixer"], h, state=state,
-                                           return_state=mode == "prefill")
+            y, new_state = apply(cfg, p["mixer"], h, state=state,
+                                 return_state=mode == "prefill")
         return x + y, new_state, None
     window = cfg.sliding_window if kind == LOCAL else None
     if mode == "decode":

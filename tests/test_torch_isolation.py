@@ -39,6 +39,7 @@ def test_port_files_exist():
                  "src/repro_torch/models/ffn.py",
                  "src/repro_torch/models/moe.py",
                  "src/repro_torch/models/ssm.py",
+                 "src/repro_torch/models/xlstm.py",
                  "src/repro_torch/data/tokens.py",
                  "src/repro_torch/configs/base.py",
                  "src/repro_torch/configs/gemma_2b.py",
