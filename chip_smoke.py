@@ -227,6 +227,24 @@ Phases, one JSON line each:
               further from the f64 forward than the f32 forward is; at
               f32, cut as the driver is, within 1e-4.  Its serving paths
               reach no kernel;
+ 18. lm_vision_audio (after ``lm_xlstm``) the same driver checks on
+              llama-3.2-vision-90b at its widths (d 8 192, d_ff 28 672,
+              vocab 128 256) cut to one (4 x attn + xattn) super-block,
+              its batches given (4, 1 600, 8 192) bf16 vision states
+              through the driver's ``stream`` seam: ``hidden_grad_tc`` on
+              the untied (512, 128 256, 8 192) head, ``corr`` on the
+              (16, 8 192) proxies; two weighted steps repeated bit for
+              bit, a step's seconds and busy share; with the gates at 0.7
+              / -0.4, decode against the forward at batch 2, 32 -> 48, at
+              bf16 within 2e-2 and at f32 within 1e-4 of max |logit|, the
+              xattn caches bit-equal through decode, and two vision inputs
+              moving the logits.  Then hubert-xlarge at full size (48
+              layers) with (4, 128) frames in place of tokens: the same
+              driver checks on its (512, 512, 1 280) ``unit_head``; one
+              forward of 2 048 frames on the non-causal blockwise route
+              against the dense route, within 2e-2 at bf16 and 1e-5 at
+              f32 cut to 2 layers; ``serve.main`` refusing it.  The decode
+              and route checks reach no kernel;
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -431,7 +449,8 @@ HYBRID_BF16_LIMIT = 5e-2            # the reference's decode test's limit
 # all 6, 48 layers, its 40 steps took 130 s, a step 3.0 s, PERF.md run
 # MA); served at full depth (48 layers).
 XLSTM_ARCH = "xlstm-1.3b"
-XLSTM_ARGV = ["--arch", XLSTM_ARCH, "--steps", "40"]
+XLSTM_ARGV = ["--arch", XLSTM_ARCH, "--steps", "20", "--select-every",
+              "10"]                 # cut from 40 steps, two selections kept
 XLSTM_TRAIN_SUPERBLOCKS = 1
 XLSTM_BATCH = 2
 XLSTM_LONG_PROMPT = 512             # two mLSTM chunks of 256
@@ -443,6 +462,38 @@ XLSTM_F32_LIMIT = 1e-4              # decode vs forward at f32, 8 layers
 # |logit|, PERF.md run MD), a mismatch between the two paths is not
 XLSTM_F64_LIMIT = 1e-9
 XLSTM_TRACE_STEPS = 3               # weighted steps timed after a warm-up
+# lm_vision_audio: llama-3.2-vision-90b at its published widths (d 8 192,
+# 64 heads, 8 KV heads, d_ff 28 672, vocab 128 256, vision stub 1 600 x
+# 8 192) cut to one (4 x attn + xattn) super-block: 6.38 B parameters,
+# ~51 GB with the SGD momentum and the gradients, where its 100 layers
+# (~176 GB at bf16) do not fit the card's 80 GB; hubert-xlarge at full
+# size (48 layers, d 1 280, 504 units padded to 512, non-causal).
+VISION_ARCH = "llama-3.2-vision-90b"
+# the drivers cut from 40 steps to 20 with a selection every 10: two
+# selections and 32 hidden_grad_tc launches kept (the whole script took
+# 1 075.3 s on a slow host at 40, PERF.md run NC)
+VISION_ARGV = ["--arch", VISION_ARCH, "--steps", "20", "--window", "16",
+               "--select-every", "10"]
+VISION_TRAIN_SUPERBLOCKS = 1
+VISION_PARAMS = 6_379_626_498       # its parameters, one super-block
+VISION_GATES = (0.7, -0.4)          # live gates (tanh 0.60 / -0.38)
+VISION_BATCH = 2
+VISION_F32_LIMIT = 1e-4             # decode vs forward at f32, 5 layers
+VISION_MOVES = 1e-2                 # two vision inputs' logits apart, of
+#                                     max |logit|, at least: the states and
+# a copy shifted by 1 (two independent draws read 1.036e-2 in PERF.md run
+# NA: 1 600 random keys average each other out)
+AUDIO_ARCH = "hubert-xlarge"
+AUDIO_ARGV = ["--arch", AUDIO_ARCH, "--steps", "20", "--select-every", "10"]
+AUDIO_PARAMS = 944_622_080
+AUDIO_FRAMES = 2048                 # one forward at flash_threshold: the
+#                                     non-causal blockwise route
+AUDIO_F32_LAYERS = 2
+AUDIO_F32_LIMIT = 1e-5              # blockwise vs dense at f32
+AUDIO_BF16_LIMIT = 2e-2             # and at bf16 against an f32 forward (the
+#                                     CPU tests' hidden limit), of max
+# |hidden|, or 1.25x the dense route's own distance where that is wider:
+# 48 bf16 layers part the two routes by 2.08e-2 (PERF.md run NA)
 
 
 def emit(phase: str, **kw) -> None:
@@ -693,6 +744,20 @@ def device_spans(torch, fn) -> list:
         if spans:
             break
     return spans
+
+
+def device_busy(torch, fn, what: str) -> tuple[int, float]:
+    """(device operations, busy seconds: the union of their spans) of one
+    traced call of ``fn`` (``device_spans``)."""
+    spans = device_spans(torch, fn)
+    check(bool(spans), f"a traced {what} call left no device record")
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return len(spans), busy / 1e6
 
 
 def device_ops(torch, fn) -> int:
@@ -4432,16 +4497,19 @@ def phase_lm(torch, np, card: dict, records: dict) -> dict:
 
 
 def teacher_forced(torch, cfg, model, tok, s0: int, fwd_cfg=None,
-                   state_check=None, lm=None):
+                   state_check=None, lm=None, vision=None,
+                   prefill_check=None):
     """Prefill ``tok[:, :s0]``, seat it into ``tok.shape[1]`` slots and
     decode the rest of ``tok`` a token at a time; and the train-mode
     forward over all of ``tok`` (under ``fwd_cfg`` where given: another
     SSD or mLSTM chunk, for a length the config's chunk does not divide).
     Returns both paths' logits over the real vocabulary at positions
     s0 - 1 .. S - 1, f32 (f64 from an f64 model), (B, S - s0 + 1, V)
-    each; ``state_check`` sees the decode state after the last step.
-    ``lm``: the LM module to run (default ``repro_torch.models.lm``;
-    ``f64_lm()`` for the f64 witness)."""
+    each; ``prefill_check`` sees the prefill's decode state and
+    ``state_check`` the decode state after the last step.  ``vision``: the
+    states an ``xattn`` model's prefill and forward attend to.  ``lm``:
+    the LM module to run (default ``repro_torch.models.lm``; ``f64_lm()``
+    for the f64 witness)."""
     from repro_torch.launch.serve import _seat
     if lm is None:
         from repro_torch.models import lm
@@ -4452,7 +4520,10 @@ def teacher_forced(torch, cfg, model, tok, s0: int, fwd_cfg=None,
     b, s = tok.shape
     v = cfg.vocab_size
     with torch.no_grad():
-        logits, pstate = lm.prefill_step(cfg, model, tok[:, :s0])
+        logits, pstate = lm.prefill_step(cfg, model, tok[:, :s0],
+                                         vision=vision)
+        if prefill_check is not None:
+            prefill_check(pstate)
         state = _seat(lm.init_decode_state(cfg, b, s, tok.device), pstate)
         del pstate
         dec = [wide(logits[:, :v])]
@@ -4464,7 +4535,7 @@ def teacher_forced(torch, cfg, model, tok, s0: int, fwd_cfg=None,
             state_check(state)
         del state
         fcfg = fwd_cfg or cfg
-        h, _, _ = lm.forward(fcfg, model, tok)
+        h, _, _ = lm.forward(fcfg, model, tok, vision=vision)
         fwd = lm.mask_padded_logits(fcfg, lm._head_out(fcfg, model,
                                                        h[:, s0 - 1:]))
     return torch.stack(dec, dim=1), wide(fwd[..., :v])
@@ -4627,7 +4698,8 @@ def routes_parted(torch, cfg, calls, b: int, s0: int, s: int):
 
 def decode_vs_forward(torch, cfg, model, tok, s0: int, limit: float,
                       what: str, phase: str = "lm_serve", fwd_cfg=None,
-                      state_check=None) -> dict:
+                      state_check=None, vision=None,
+                      prefill_check=None) -> dict:
     """``teacher_forced``'s two sets of logits: the largest difference
     relative to the forward's largest |logit|, held to ``limit``.
 
@@ -4638,12 +4710,14 @@ def decode_vs_forward(torch, cfg, model, tok, s0: int, limit: float,
     at or before the row) are held to ``limit``, and the partings, the
     rows they reach and the error over all rows are reported.  Then
     routed to the forward's experts (``RouteReplayer``; the weights from
-    its own probabilities), every row is held to ``limit``."""
+    its own probabilities), every row is held to ``limit``.  ``vision``
+    and ``prefill_check`` go to ``teacher_forced``."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with RouteRecorder() as rec:
         dec, fwd = teacher_forced(torch, cfg, model, tok, s0, fwd_cfg,
-                                  state_check)
+                                  state_check, vision=vision,
+                                  prefill_check=prefill_check)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     scale = float(fwd.abs().max())
@@ -4660,7 +4734,8 @@ def decode_vs_forward(torch, cfg, model, tok, s0: int, limit: float,
                 + [r[:, t][None] for t in range(s0, s) for r in fwd_ids]
                 + fwd_ids)
         with RouteReplayer(plan):
-            dec_r, fwd_r = teacher_forced(torch, cfg, model, tok, s0)
+            dec_r, fwd_r = teacher_forced(torch, cfg, model, tok, s0,
+                                          vision=vision)
         check(torch.equal(fwd_r, fwd), f"{what}: the forward on its own "
               "routes gave other logits")
         err_r = float((dec_r - fwd).abs().max()) / scale
@@ -5063,12 +5138,14 @@ def opened(cfg):
     return cfg.replace(moe=replace(m, capacity_factor=m.n_experts / m.top_k))
 
 
-def lm_driver(torch, np, phase: str, path: str, cfg, argv) -> dict:
+def lm_driver(torch, np, phase: str, path: str, cfg, argv,
+              stream=None) -> dict:
     """``launch/train.main(argv)`` on a fresh ``lm.init_lm(cfg)`` through
-    the ``model`` seam, the launch counts set to 0 just before and read
-    just after: finite losses, ``hidden_grad_tc`` once a candidate and
-    selection, the FFMA ``hidden_grad`` never, ``corr`` and
-    ``corr_argmax`` launched, each selection's weights summing to 1."""
+    the ``model`` seam (and ``stream``, where given, through the ``stream``
+    seam), the launch counts set to 0 just before and read just after:
+    finite losses, ``hidden_grad_tc`` once a candidate and selection, the
+    FFMA ``hidden_grad`` never, ``corr`` and ``corr_argmax`` launched, each
+    selection's weights summing to 1."""
     import gc
 
     from repro_torch.kernels import ops
@@ -5086,7 +5163,7 @@ def lm_driver(torch, np, phase: str, path: str, cfg, argv) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rep = train.main(argv, model=model)
+    rep = train.main(argv, model=model, stream=stream)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts, shapes = ops.launch_counts(), ops.launch_shapes()
@@ -5122,18 +5199,22 @@ def lm_driver(torch, np, phase: str, path: str, cfg, argv) -> dict:
 def hold_head(torch, card: dict, records: dict, phase: str, path: str, cfg,
               model, cand) -> dict:
     """``hidden_grad_tc`` on a real candidate of the model's head (untied:
-    W = ``lm_head`` (d, V), contiguous; tied: W = ``embed.T``, the
-    transpose of a contiguous (V, d)): the path's route, against the plain
-    version within ``LM_HG_LIMIT`` of max |out|, the same bits twice,
-    timed beside the plain version and cuBLAS's f32 product of the
-    materialised residual; the record of ``path``."""
+    W = ``lm_head`` or an encoder's ``unit_head`` (d, V), contiguous;
+    tied: W = ``embed.T``, the transpose of a contiguous (V, d)): the
+    path's route, against the plain version within ``LM_HG_LIMIT`` of max
+    |out|, the same bits twice, timed beside the plain version and
+    cuBLAS's f32 product of the materialised residual; the record of
+    ``path``.  The candidate's ``vision`` or ``embeds`` go to the forward
+    beside (or in place of) its tokens."""
     from repro_torch.kernels import lastlayer_grad as llg_k
     from repro_torch.kernels import ref
     from repro_torch.models import lm
 
     bw, _ = peaks(card["name"])
     with torch.no_grad():
-        h, _, _ = lm.forward(cfg, model, cand["tokens"])
+        h, _, _ = lm.forward(cfg, model, cand.get("tokens"),
+                             embeds=cand.get("embeds"),
+                             vision=cand.get("vision"))
         logits = lm._head_out(cfg, model, h)
     del h
     z = logits.reshape(-1, logits.shape[-1])
@@ -5141,9 +5222,9 @@ def hold_head(torch, card: dict, records: dict, phase: str, path: str, cfg,
     w = lm.head_weight(cfg, model).detach()
     n, v = z.shape
     dh = w.shape[0]
-    tied = cfg.tie_embeddings
+    tied = cfg.tie_embeddings and not cfg.encoder_only
     check((w.T if tied else w).is_contiguous(), f"{cfg.name}'s head is "
-          f"not {'embed.T' if tied else 'a contiguous (d, V) lm_head'}")
+          f"not {'embed.T' if tied else 'a contiguous (d, V) matrix'}")
     check(llg_k.takes_tensor_cores(z.dtype, w.dtype, n, v, dh, tied,
                                    z.data_ptr(), w.data_ptr()),
           f"the {path} path's hidden_grad call is not routed to the tensor "
@@ -5179,7 +5260,9 @@ def hold_head(torch, card: dict, records: dict, phase: str, path: str, cfg,
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                bound_by=by, library_ms=lib_ms, shape=[n, v, dh])
     emit("kernels", kernel="hidden_grad_tc", path=path, dtype="bfloat16",
-         layout="embed.T (tied head)" if tied else "lm_head (untied head)",
+         layout="embed.T (tied head)" if tied else (
+             "unit_head (encoder head)" if cfg.encoder_only
+             else "lm_head (untied head)"),
          max_abs_out=scale,
          rel_err=err / scale, limit=LM_HG_LIMIT, same_bits=same_bits,
          **{k: rec[k] for k in rec if k != "max_abs_err"}, max_abs_err=err)
@@ -5191,11 +5274,14 @@ def hold_head(torch, card: dict, records: dict, phase: str, path: str, cfg,
     return rec
 
 
-def weighted_steps_repeat(torch, cfg, model, batch, lr: float) -> dict:
+def weighted_steps_repeat(torch, cfg, model, batch, lr: float,
+                          host_copy: bool = False) -> dict:
     """Two weighted SGD steps (momentum 0.9, remat as configured) on
     ``batch`` from the model's parameters, run twice from the same start:
     the losses and every parameter must come out with the same bits.  The
-    parameters are put back afterwards."""
+    parameters are put back afterwards.  ``host_copy`` keeps the first
+    run's parameters in host memory (a model whose parameters, start copy,
+    f32 momentum and gradients fill the card otherwise)."""
     from repro_torch.optim import sgd
     from repro_torch.train.steps import lm_train_step_fn
 
@@ -5215,11 +5301,13 @@ def weighted_steps_repeat(torch, cfg, model, batch, lr: float) -> dict:
         losses.append(dict(losses=run_losses,
                            seconds=time.perf_counter() - t0))
         if first is None:
-            first = [p.detach().clone() for p in params]
+            first = [p.detach().to("cpu", copy=True) if host_copy
+                     else p.detach().clone() for p in params]
         else:
             differ = [i for i, (p, q) in enumerate(zip(params, first))
-                      if not torch.equal(p, q)]
+                      if not torch.equal(p, q.to(p.device))]
         del opt, step
+        model.zero_grad(set_to_none=True)
     with torch.no_grad():
         for p, s0 in zip(params, start):
             p.copy_(s0)
@@ -5563,19 +5651,6 @@ def xlstm_step_trace(torch, cfg, model, batch, lr: float) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    def device_busy(fn):
-        """(device operations, busy seconds: the union of their spans) of
-        one traced call."""
-        spans = device_spans(torch, fn)
-        check(bool(spans), "a traced xLSTM call left no device record")
-        busy, end = 0.0, spans[0][0]
-        for a, b in spans:
-            a = max(a, end)
-            if b > a:
-                busy += b - a
-                end = b
-        return len(spans), busy / 1e6
-
     si = cfg.layer_pattern.index(SLSTM)
     mixers = [bp[f"sub{si}"]["mixer"] for bp in model["blocks"]]
     b, t = batch["tokens"].shape
@@ -5596,8 +5671,8 @@ def xlstm_step_trace(torch, cfg, model, batch, lr: float) -> dict:
              for _ in range(XLSTM_TRACE_STEPS + 1)][1:]
     step_s = statistics.median(t for t, _ in times)
     slstm_s = statistics.median(t for _, t in times)
-    step_ops, step_busy = device_busy(lambda: step(batch))
-    slstm_ops, slstm_busy = device_busy(slstm_layers)
+    step_ops, step_busy = device_busy(torch, lambda: step(batch), "xLSTM")
+    slstm_ops, slstm_busy = device_busy(torch, slstm_layers, "xLSTM")
     model.zero_grad(set_to_none=True)
     del opt, step
     host_steps = len(mixers) * t
@@ -5759,6 +5834,308 @@ def phase_lm_xlstm(torch, np, card: dict, records: dict) -> dict:
     return {**run, "head": head, "trace": trace, "decode": res}
 
 
+class StubStream:
+    """A ``TokenStream`` with a config's stub inputs, as the reference's
+    tests make them (``tests/test_models.py``): for a vlm, ``vision``
+    (B, n_img, d_embed) beside the tokens; for audio, ``embeds`` (B, S,
+    d_model) in place of them.  Seeded bf16 normals from a
+    ``torch.Generator`` on the stream's device, a pure function of (seed,
+    step, shard) like the tokens.  Not part of the package: the reference
+    has no such stream either."""
+
+    def __init__(self, cfg, tokens):
+        self.cfg, self.tokens, self.device = cfg, tokens, tokens.device
+
+    def batch(self, step: int, shard: int = 0) -> dict:
+        import torch
+
+        from repro_torch.data.tokens import stream_seed
+        out = dict(self.tokens.batch(step, shard))
+        gen = torch.Generator(device=self.device).manual_seed(
+            stream_seed(self.tokens.seed ^ 0x5EED, step, shard))
+        b, s = out["targets"].shape
+        cfg = self.cfg
+        if cfg.family == "vlm":
+            key, shape = "vision", (b, cfg.vision.n_tokens,
+                                    cfg.vision.d_embed)
+        else:
+            key, shape = "embeds", (b, s, cfg.d_model)
+            del out["tokens"]
+        out[key] = torch.randn(shape, generator=gen, device=self.device,
+                               dtype=torch.bfloat16)
+        return out
+
+
+def step_seconds_and_busy(torch, cfg, model, batch, lr: float) -> dict:
+    """A weighted SGD step (``lm_train_step_fn``, remat as configured) on
+    ``batch``: one step under ``torch.profiler`` after an untraced one
+    (``device_busy``: its device operations and busy seconds), then its
+    median seconds between syncs over two more steps, and the card's busy
+    share (busy seconds over that median).  The steps move the
+    parameters; the gradients are freed after."""
+    from repro_torch.optim import sgd
+    from repro_torch.train.steps import lm_train_step_fn
+
+    opt = sgd(model.parameters(), lr, momentum=0.9)
+    step = lm_train_step_fn(cfg, model, opt)
+    ops, busy = device_busy(torch, lambda: step(batch), cfg.name)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    model.zero_grad(set_to_none=True)
+    del opt, step
+    sec = statistics.median(times)
+    return dict(step_seconds=sec, step_seconds_all=times,
+                step_device_ops=ops, step_device_busy_s=busy,
+                device_busy_share=busy / sec)
+
+
+def phase_lm_vision_audio(torch, np, card: dict, records: dict) -> dict:
+    """Vision and audio through the port's LM entry points on the card.
+
+    llama-3.2-vision-90b at its published widths cut to
+    ``VISION_TRAIN_SUPERBLOCKS`` (4 x attn + xattn) super-block: the
+    driver (``train.main``, ``VISION_ARGV``) through its ``stream`` seam
+    with a ``StubStream`` adding the (4, 1 600, 8 192) vision states;
+    ``hidden_grad_tc`` on a real candidate of its untied (512, 128 256,
+    8 192) head; one selection with the kernels and one with the plain
+    versions, ``corr`` / ``corr_argmax`` at the path's shapes (the
+    (16, 8 192) proxies); two weighted steps repeated bit for bit; a
+    step's seconds and the card's busy share.  Then, with the gates set
+    to ``VISION_GATES``: teacher-forced decode against the train-mode
+    forward at batch ``VISION_BATCH``, 32 -> 48, at bf16 within
+    ``SERVE_LM_BF16_LIMIT`` and at f32 within ``VISION_F32_LIMIT``, the
+    xattn caches equal bit for bit after prefill and after decode; the
+    logits under the vision states and under a copy shifted by 1 apart
+    by more than ``VISION_MOVES`` of max |logit| (under a second
+    independent draw, reported).
+
+    hubert-xlarge at full size: the driver through a ``StubStream`` of
+    (4, 128) frames in place of tokens, ``hidden_grad_tc`` on its
+    (512, 512, 1 280) ``unit_head``, the selection and ``corr`` /
+    ``corr_argmax`` records, two weighted steps repeated bit for bit and
+    a step's busy share; one bf16 forward of ``AUDIO_FRAMES`` frames on
+    the non-causal blockwise route, held against the f32 forward of the
+    same weights on the dense ``_attend`` route (the threshold lifted) as
+    close as the bf16 dense route is (``AUDIO_BF16_LIMIT``), and at f32
+    cut to ``AUDIO_F32_LAYERS`` layers against the dense route within
+    ``AUDIO_F32_LIMIT``;
+    ``serve.main`` refusing the encoder-only model.  The decode and
+    forward checks reach no kernel of the port."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.models import lm
+    from repro_torch.train.steps import make_lm_proxy_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out = {"counts": {}, "shapes": {}, "selection_seconds": {}}
+
+    def stub_stream(cfg, args):
+        return StubStream(cfg, TokenStream(
+            seed=args.seed, batch_per_shard=args.micro_batch,
+            seq_len=args.seq_len, vocab=cfg.vocab_size,
+            n_shards=args.window, device=dev))
+
+    def train_checks(path, cfg, argv, n_params, host_copy):
+        """The driver, the head, the selection, two steps repeated and a
+        step traced; returns the model, its args and a candidate."""
+        args = train.build_argparser().parse_args(argv)
+        stream = stub_stream(cfg, args)
+        drv = lm_driver(torch, np, "lm_vision_audio", path, cfg, argv,
+                        stream=stream)
+        model = drv["model"]
+        model.zero_grad(set_to_none=True)
+        check(drv["rep"]["params"] == n_params, f"{cfg.name} has "
+              f"{drv['rep']['params']} parameters, not {n_params}")
+        for k, v in drv["run"].items():
+            out[k].update(v)
+        last_round = (args.steps - 1) // args.select_every
+        cand = stream.batch(last_round, 0)
+        out[path] = {"head": hold_head(torch, card, records,
+                                       "lm_vision_audio", path, cfg, model,
+                                       cand)}
+        lm_select_and_omp(torch, card, records, "lm_vision_audio", path,
+                          make_lm_proxy_step(cfg, model), stream, args,
+                          last_round)
+        batch = dict(cand)
+        batch["weights"] = torch.full((args.micro_batch,),
+                                      1.0 / args.micro_batch, device=dev)
+        det = weighted_steps_repeat(torch, cfg, model, batch, args.lr,
+                                    host_copy=host_copy)
+        emit("lm_vision_audio", path=path, what="determinism", **det)
+        check(det["same_bits"], f"two weighted {cfg.name} steps from the "
+              f"same start gave other bits: {det}")
+        busy = step_seconds_and_busy(torch, cfg, model, batch, args.lr)
+        emit("lm_vision_audio", path=path, what="step", smi=card["smi"],
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9, **busy)
+        out[path].update(determinism=det, step=busy)
+        return model, cand
+
+    # --- llama-3.2-vision-90b, one super-block ------------------------------
+    full = get_config(VISION_ARCH)
+    cut = dict(n_superblocks=VISION_TRAIN_SUPERBLOCKS,
+               n_layers=len(full.layer_pattern) * VISION_TRAIN_SUPERBLOCKS)
+    cfg = full.replace(**cut)
+    model, cand = train_checks("lm_vision", cfg, VISION_ARGV, VISION_PARAMS,
+                               host_copy=True)
+    del cand
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    xsub = f"sub{cfg.layer_pattern.index('xattn')}"
+    with torch.no_grad():
+        for name, gate in zip(("gate_attn", "gate_mlp"), VISION_GATES):
+            for i in range(cfg.n_superblocks):
+                model["blocks"][i][xsub][name].fill_(gate)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s_tot = SERVE_LM_PROMPT + SERVE_LM_GEN
+    tok = torch.randint(0, cfg.vocab_size, (VISION_BATCH, s_tot),
+                        generator=gen, device=dev, dtype=torch.int32)
+    vis = [torch.randn((VISION_BATCH, cfg.vision.n_tokens,
+                        cfg.vision.d_embed), generator=gen, device=dev,
+                       dtype=torch.bfloat16) for _ in range(2)]
+    caches = {}
+
+    def xattn_caches(key):
+        def look(state):
+            caches[key] = [{k: blk[xsub][k].clone() for k in ("k", "v")}
+                           for blk in state["blocks"]]
+        return look
+
+    dec = {}
+    dec["bf16"] = decode_vs_forward(
+        torch, cfg, model, tok, SERVE_LM_PROMPT, SERVE_LM_BF16_LIMIT,
+        f"{VISION_ARCH} bf16, {cfg.n_layers} layers", "lm_vision_audio",
+        vision=vis[0], prefill_check=xattn_caches("prefill"),
+        state_check=xattn_caches("decoded"))
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(
+        caches["prefill"], caches["decoded"]) for k in ("k", "v"))
+    shapes = [list(c["k"].shape) for c in caches["prefill"]]
+    emit("lm_vision_audio", what="xattn caches through decode",
+         bit_equal=same, shapes=shapes)
+    check(same, "an xattn cache changed during decode")
+    check(shapes == [[VISION_BATCH, cfg.vision.n_tokens, cfg.n_kv_heads,
+                      cfg.head_dim]] * cfg.n_superblocks,
+          f"the xattn caches are {shapes}")
+    with torch.no_grad():
+        lg = [lm._head_out(cfg, model, lm.forward(cfg, model, tok,
+                                                  vision=v)[0])
+              for v in (vis[0], vis[1], vis[0] + 1)]
+    scale = float(lg[0].abs().max())
+    moved = {key: float((lg[0] - lg[i]).abs().max()) / scale
+             for i, key in ((1, "independent"), (2, "shifted"))}
+    emit("lm_vision_audio", what="vision moves the logits", **moved,
+         at_least=VISION_MOVES)
+    check(moved["shifted"] > VISION_MOVES, f"vision shifted by 1 moved the "
+          f"logits by {moved['shifted']} of max |logit|")
+    del lg, caches
+    # the same super-block at f32, the bf16 model gone first
+    cfg32 = cfg.replace(param_dtype="float32")
+    model32 = copy.deepcopy(model).float()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dec["f32"] = decode_vs_forward(
+        torch, cfg32, model32, tok, SERVE_LM_PROMPT, VISION_F32_LIMIT,
+        f"{VISION_ARCH} f32, {cfg.n_layers} layers", "lm_vision_audio",
+        vision=vis[0])
+    out["lm_vision"]["decode"] = dec
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"the vision decode checks launched "
+          f"{counts}")
+    del model32, tok, vis
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_vision = time.perf_counter() - t_phase
+
+    # --- hubert-xlarge, full size -------------------------------------------
+    cfg = get_config(AUDIO_ARCH)
+    model, cand = train_checks("lm_audio", cfg, AUDIO_ARGV, AUDIO_PARAMS,
+                               host_copy=False)
+    del cand
+    ops.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn((1, AUDIO_FRAMES, cfg.d_model), generator=gen,
+                         device=dev, dtype=torch.bfloat16)
+
+    def routes(c, m, limit, what, m32=None):
+        """The blockwise route's hidden states against the dense route's
+        (``m32``: and both against the f32 dense forward of the same
+        weights, the blockwise route held as close to it as the dense)."""
+        check(AUDIO_FRAMES >= c.flash_threshold, f"{AUDIO_FRAMES} frames "
+              f"do not reach the blockwise route at {c.flash_threshold}")
+        dense_cfg = c.replace(flash_threshold=2 * AUDIO_FRAMES)
+        with torch.no_grad():
+            h_tiles = lm.forward(c, m, embeds=frames)[0].float()
+            h_dense = lm.forward(dense_cfg, m, embeds=frames)[0].float()
+            true = h_dense if m32 is None else lm.forward(
+                dense_cfg.replace(param_dtype="float32"), m32,
+                embeds=frames)[0]
+        torch.cuda.synchronize()
+        scale = float(true.abs().max())
+        err = float((h_tiles - h_dense).abs().max()) / float(
+            h_dense.abs().max())
+        res = dict(what=what, frames=AUDIO_FRAMES, layers=c.n_layers,
+                   dtype=c.param_dtype, rel_err=err, limit=limit,
+                   finite=bool(torch.isfinite(h_tiles).all()))
+        if m32 is not None:
+            res.update(
+                blockwise_vs_f32=float((h_tiles - true).abs().max()) / scale,
+                dense_vs_f32=float((h_dense - true).abs().max()) / scale)
+            res["bound"] = max(limit, 1.25 * res["dense_vs_f32"])
+        emit("lm_vision_audio", **res)
+        check(res["finite"], f"{what}: blockwise hidden states not finite")
+        if m32 is None:
+            check(err <= limit, f"{what}: blockwise vs dense {err} of max "
+                  f"|hidden| (limit {limit})")
+        else:
+            check(res["blockwise_vs_f32"] <= res["bound"], f"{what}: "
+                  f"blockwise {res['blockwise_vs_f32']} of max |hidden| "
+                  f"from the f32 forward, dense {res['dense_vs_f32']} "
+                  f"(bound {res['bound']})")
+        return res
+
+    model32 = copy.deepcopy(model).float()
+    out["lm_audio"]["routes"] = {"bf16": routes(
+        cfg, model, AUDIO_BF16_LIMIT, f"{AUDIO_ARCH} bf16 non-causal",
+        model32)}
+    del model, model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    c32 = cfg.replace(param_dtype="float32", n_layers=AUDIO_F32_LAYERS,
+                      n_superblocks=AUDIO_F32_LAYERS)
+    m32 = lm.init_lm(c32, torch.Generator(device=dev).manual_seed(0), dev)
+    out["lm_audio"]["routes"]["f32"] = routes(
+        c32, m32, AUDIO_F32_LIMIT, f"{AUDIO_ARCH} f32 non-causal")
+    del m32, frames
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"the audio route checks launched "
+          f"{counts}")
+    try:
+        serve.main(["--arch", AUDIO_ARCH])
+        refused = None
+    except SystemExit as e:
+        refused = str(e)
+    emit("lm_vision_audio", what="serve.main refuses", arch=AUDIO_ARCH,
+         message=refused)
+    check(refused is not None and "encoder-only" in refused,
+          f"serve.main on {AUDIO_ARCH} did not refuse: {refused}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("lm_vision_audio", what="phase", vision_seconds=t_vision,
+         seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def kernels_line(torch, records: dict, runs) -> list:
     """The ``kernels`` line from the paths' runs (each a dict of counts,
     shapes, routes and selection seconds): every kernel a path launched,
@@ -5894,7 +6271,9 @@ def main() -> int:
     mo = run("lm_moe", phase_lm_moe, torch, np, card, records)
     hy = run("lm_hybrid", phase_lm_hybrid, torch, np, card, records)
     xl = run("lm_xlstm", phase_lm_xlstm, torch, np, card, records)
-    runs = (tr, ba, cr, st, pa, sv, lm_, mo, hy, xl)
+    va = run("lm_vision_audio", phase_lm_vision_audio, torch, np, card,
+             records)
+    runs = (tr, ba, cr, st, pa, sv, lm_, mo, hy, xl, va)
     kernels = run("kernels_line", kernels_line, torch, records, runs)
     emit("done", seconds=time.perf_counter() - t_start, phases=phase_s)
     print(card["smi"])

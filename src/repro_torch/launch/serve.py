@@ -9,6 +9,12 @@ than ``--batch`` is padded with copies of its last prompt, as the
 reference's comment intends (its comprehension raises there instead); the
 report counts only the real requests and their tokens.
 
+An encoder-only config (hubert-xlarge) has no decode step, and a config
+with ``xattn`` layers (llama-3.2-vision-90b) needs ``vision`` states for
+its prefill, which this driver's queue of token prompts does not carry:
+``main`` refuses both with ``SystemExit``, as the reference refuses the
+first (its prefill fails on the second); ``generate`` takes ``vision``.
+
 It runs on the card unless ``--device cpu`` asks for the CPU; a missing
 card raises.  Example::
 
@@ -25,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import XATTN, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm as lm_lib
 
@@ -49,7 +55,9 @@ def build_argparser() -> argparse.ArgumentParser:
 def _seat(full_state, prefill_state):
     """Copy the prefill caches into the (larger) decode buffers, leaf by
     leaf, along the first dim where their shapes differ (the sequence
-    dim); the buffers are written in place.  A window layer's prefill ring
+    dim); the buffers are written in place.  A leaf of the buffer's shape
+    (a recurrent state, an ``xattn`` layer's vision K / V of ``(B, n_img,
+    kv, hd)``) is the prefill's own.  A window layer's prefill ring
     is ``window`` slots, which may be more than a decode buffer of
     ``s_max < window`` slots: it is cut to the buffer, since slots past
     the prompt are empty."""
@@ -71,14 +79,16 @@ def _seat(full_state, prefill_state):
 
 @torch.no_grad()
 def generate(cfg: ModelConfig, model: lm_lib.LM, prompts: torch.Tensor,
-             gen_len: int) -> torch.Tensor:
-    """Greedy continuation of ``prompts`` (B, P) int on the model's device:
+             gen_len: int, vision: torch.Tensor | None = None
+             ) -> torch.Tensor:
+    """Greedy continuation of ``prompts`` (B, P) int on the model's device
+    (with their ``vision`` states (B, N, d_embed) for an ``xattn`` model):
     the prefill's argmax, then one argmax per decode step at positions
     P .. P + gen_len - 1.  Returns the (B, gen_len + 1) tokens, on the
     device, as the reference's loop computes them."""
     b, plen = prompts.shape
     device = prompts.device
-    logits, pstate = lm_lib.prefill_step(cfg, model, prompts)
+    logits, pstate = lm_lib.prefill_step(cfg, model, prompts, vision=vision)
     state = _seat(lm_lib.init_decode_state(cfg, b, plen + gen_len, device),
                   pstate)
     cur = logits.argmax(-1)[:, None].to(torch.int32)
@@ -107,6 +117,10 @@ def main(argv=None, *, model: lm_lib.LM | None = None) -> dict:
                else get_config(args.arch))
     if cfg.encoder_only:
         raise SystemExit(f"{args.arch} is encoder-only: no decode step")
+    if XATTN in cfg.prologue + cfg.layer_pattern:
+        raise SystemExit(f"{args.arch} cross-attends to vision states: its "
+                         f"prefill needs a `vision` input, which this "
+                         f"driver's token prompts do not carry")
     if model is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         model = lm_lib.init_lm(cfg, gen, device)

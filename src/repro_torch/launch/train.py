@@ -2,9 +2,11 @@
 ``repro/launch/train.py``.
 
 ``--arch <id>`` selects an architecture (``--smoke`` for the reduced config;
-the port runs the dense attention archs, the MoE archs, zamba2-7b and
-xlstm-1.3b, and refuses the ``xattn`` and encoder-only ones).  The loop is
-the reference's:
+the port runs all ten).  Its own token stream has tokens only, as the
+reference's has: the ``vlm`` and ``audio`` families (llama-3.2-vision-90b,
+hubert-xlarge) need a caller's ``stream=`` whose batches carry ``vision``
+or ``embeds``, and without one the driver raises.  The loop is the
+reference's:
 
   - a stateless-indexed token stream (``data/tokens.py``);
   - GRAD-MATCHPB candidate selection every R *steps* over a window of W
@@ -49,6 +51,11 @@ from repro_torch.optim import cosine_with_warmup, sgd
 from repro_torch.train.steps import lm_train_step_fn, make_lm_proxy_step
 
 
+# the stub inputs a family's batches carry beside the targets
+_STUB_INPUTS = {"vlm": "vision states (batch['vision'])",
+                "audio": "frame embeddings (batch['embeds'])"}
+
+
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma-2b")
@@ -86,9 +93,11 @@ def main(argv=None, *, stream=None, model: lm_lib.LM | None = None) -> dict:
 
     ``stream`` and ``model`` are seams for a caller that brings its own
     batches (anything with ``batch(step, shard) -> {'tokens', 'targets'}``
-    on the device) or its own parameters (``lm.params_from_jax``); by
-    default the driver builds a ``TokenStream`` and ``lm.init_lm`` from
-    ``--seed``.
+    on the device, and ``vision`` (B, N, d_embed) for a ``vlm`` model or
+    ``embeds`` (B, S, d_model) in place of ``tokens`` for an ``audio``
+    one: every key goes to the step and the proxy as it is) or its own
+    parameters (``lm.params_from_jax``); by default the driver builds a
+    ``TokenStream`` and ``lm.init_lm`` from ``--seed``.
     """
     args = build_argparser().parse_args(argv)
     if args.mesh_data > 1 or args.mesh_model > 1 or args.fsdp:
@@ -102,6 +111,11 @@ def main(argv=None, *, stream=None, model: lm_lib.LM | None = None) -> dict:
     else:
         cfg = (get_smoke_config(args.arch) if args.smoke
                else get_config(args.arch))
+    if stream is None and cfg.family in _STUB_INPUTS:
+        raise SystemExit(
+            f"{cfg.name} reads {_STUB_INPUTS[cfg.family]}, which the "
+            f"driver's TokenStream does not draw: pass main(stream=...) a "
+            f"stream whose batches carry them")
 
     if model is None:
         gen = torch.Generator(device=device)

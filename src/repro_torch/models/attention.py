@@ -1,6 +1,7 @@
-"""Self-attention, after ``repro/models/attention.py``: GQA/MQA by head
-grouping, RoPE, sliding window, softcap, q/k head norms, the blockwise
-(flash-style) path for long sequences, and the decode caches.
+"""Self- and cross-attention, after ``repro/models/attention.py``: GQA/MQA
+by head grouping, RoPE, sliding window, softcap, q/k head norms, the
+blockwise (flash-style) path for long sequences, the decode caches, and
+cross-attention to (static) vision states.
 
 The math follows the reference step by step: scores in f32 (bf16 operands
 widened, as ``preferred_element_type`` does), masked to ``MASK_VALUE``,
@@ -17,8 +18,8 @@ when the prompt is shorter than the window or a multiple of it, and
 elsewhere its decode overwrites a position still inside the window.  Where
 the reference is consistent the port's caches equal its caches; where it
 is not, the port's decode still equals its teacher-forced forward.
-Cross-attention is not ported (ROADMAP queue 1, "The rest of the LM
-side").
+Cross-attention's K and V over the vision states are computed once at
+prefill and read unchanged by every decode step.
 """
 
 from __future__ import annotations
@@ -37,14 +38,18 @@ _M_INIT = -1.0e30
 
 
 def init_attention(cfg, device: torch.device,
-                   generator: Optional[torch.Generator] = None) -> dict:
+                   generator: Optional[torch.Generator] = None,
+                   cross: bool = False) -> dict:
+    """The projections; with ``cross`` K and V project from the vision
+    states' width ``cfg.vision.d_embed``."""
     dt = dtype_of(cfg)
+    kv_src = cfg.vision.d_embed if (cross and cfg.vision) else cfg.d_model
     p = {
         "wq": common.dense_param((cfg.d_model, cfg.q_dim), dt, device,
                                  generator),
-        "wk": common.dense_param((cfg.d_model, cfg.kv_dim), dt, device,
+        "wk": common.dense_param((kv_src, cfg.kv_dim), dt, device,
                                  generator),
-        "wv": common.dense_param((cfg.d_model, cfg.kv_dim), dt, device,
+        "wv": common.dense_param((kv_src, cfg.kv_dim), dt, device,
                                  generator),
         "wo": common.dense_param((cfg.q_dim, cfg.d_model), dt, device,
                                  generator),
@@ -222,6 +227,27 @@ def _out_proj(cfg, p, out: torch.Tensor) -> torch.Tensor:
     if cfg.attn_bias:
         y = y + p["bo"]
     return y
+
+
+def cross_attention(cfg, p, x: torch.Tensor,
+                    kv_states: Optional[torch.Tensor] = None,
+                    kv_cache: Optional[dict] = None,
+                    return_cache: bool = False):
+    """Cross-attention of x (B,S,d) to the vision states (B,N,d_embed): no
+    RoPE, no mask.  With ``kv_cache`` (the prefill's ``{"k", "v"}``) K and
+    V are taken as they are, already normed.  Returns (y, the ``{"k",
+    "v"}`` cache with ``return_cache``, else None)."""
+    if kv_cache is not None:
+        k, v = kv_cache["k"], kv_cache["v"]
+    else:
+        k, v = _project_kv(cfg, p, kv_states)
+    q = _project_q(cfg, p, x)
+    if cfg.qk_norm:
+        q = common.rms_head_norm(q, p["q_norm"])
+        if kv_cache is None:
+            k = common.rms_head_norm(k, p["k_norm"])
+    y = _out_proj(cfg, p, _attend(cfg, q, k, v, None))
+    return y, ({"k": k, "v": v} if return_cache else None)
 
 
 def _ring_cache(k: torch.Tensor, v: torch.Tensor, window: int) -> dict:

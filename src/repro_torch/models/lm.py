@@ -1,13 +1,14 @@
 """LM assembly, after ``repro/models/lm.py``: config -> init / forward /
 loss / prefill / decode / selection proxy.
 
-The port covers the attention layer kinds (``attn``, ``local``,
-``global``) with a dense FFN or a Mixture-of-Experts (``models/moe.py``),
-the Mamba2 hybrid (``mamba2`` sub-layers, ``models/ssm.py``, and zamba2's
-``shared_attn`` block) and xLSTM (``mlstm`` and ``slstm`` sub-layers,
-``models/xlstm.py``): the dense archs (gemma-2b, gemma2-9b, starcoder2-3b,
-codeqwen1.5-7b), the MoE archs (qwen3-moe-30b-a3b, moonshot-v1-16b-a3b),
-zamba2-7b and xlstm-1.3b, in the reference's three modes:
+The port covers every layer kind of the reference: the attention kinds
+(``attn``, ``local``, ``global``) with a dense FFN or a Mixture-of-Experts
+(``models/moe.py``), the Mamba2 hybrid (``mamba2`` sub-layers,
+``models/ssm.py``, and zamba2's ``shared_attn`` block), xLSTM (``mlstm``
+and ``slstm`` sub-layers, ``models/xlstm.py``) and cross-attention to
+vision states (``xattn``), with the LM head or hubert's encoder-only
+``unit_head``: all ten archs of ``configs/``, in the reference's three
+modes:
 
   - ``train``:   stateless forward, recomputed per super-block with remat;
   - ``prefill``: forward that also returns the decode state;
@@ -17,10 +18,15 @@ zamba2-7b and xlstm-1.3b, in the reference's three modes:
 
 A recurrent sub-layer (``mamba2``, ``mlstm``, ``slstm``) is ``norm1``, the
 mixer and the residual; its decode state has the same shapes in prefill
-and decode.  ``xattn`` and encoder-only heads raise
-``NotImplementedError`` (ROADMAP queue 1, "The rest of the LM side").  The
-decode state is a dict like the reference's, with ``blocks`` a list of
-super-blocks where the reference stacks them.
+and decode.  An ``xattn`` sub-layer (llama-3.2-vision) is cross-attention
+to the ``vision`` states and a plain FFN (even in an MoE config), each
+added through ``tanh`` of an f32 0-d gate that starts at 0; its decode
+state is the vision K / V of the prefill, ``(B, n_img, kv, hd)``, which
+decode reads and passes on unchanged.  An encoder-only model (hubert)
+reads frame ``embeds`` in place of tokens (the audio family has no
+``embed``) and has no decode step.  The decode state is a dict like the
+reference's, with ``blocks`` a list of super-blocks where the reference
+stacks them.
 
 Parameters live in a ``ParamTree`` (``LM``) whose names follow the
 reference's pytree paths, with ``blocks`` a list of super-blocks where the
@@ -48,35 +54,19 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (ATTN, GLOBAL, LOCAL, MAMBA, MLSTM,
-                                      SHARED_ATTN, SLSTM, ModelConfig)
+from repro_torch.configs.base import (LOCAL, MAMBA, MLSTM, SHARED_ATTN,
+                                      SLSTM, XATTN, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.core import proxies as proxy_lib
 from repro_torch.models import attention, common, ffn, moe, ssm, xlstm
 from repro_torch.models.common import ParamTree, dtype_of
 
-_PORTED_KINDS = (ATTN, LOCAL, GLOBAL, SHARED_ATTN, MAMBA, MLSTM, SLSTM)
-_LATER = 'ROADMAP queue 1, "The rest of the LM side"'
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.prologue + cfg.layer_pattern)
-    if cfg.encoder_only:
-        raise NotImplementedError(f"{cfg.name}: encoder-only heads are not "
-                                  f"ported yet ({_LATER})")
-    other = sorted(kinds - set(_PORTED_KINDS))
-    if other:
-        raise NotImplementedError(f"{cfg.name}: layer kinds {other} are not "
-                                  f"ported yet ({_LATER})")
-
-
 class LM(ParamTree):
-    """The parameters of one LM (``embed``, ``lm_head`` when untied,
-    ``prologue``, ``shared``, ``blocks``, ``final_norm``) with its
-    config."""
+    """The parameters of one LM (``embed`` unless audio, ``lm_head`` when
+    untied or ``unit_head`` when encoder-only, ``prologue``, ``shared``,
+    ``blocks``, ``final_norm``) with its config."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
-        _check_supported(cfg)
         super().__init__(tree)
         self.cfg = cfg
 
@@ -101,6 +91,16 @@ def _init_sublayer(cfg: ModelConfig, kind: str, device, generator) -> dict:
     if kind in _MIXERS:
         return {"norm1": common.init_norm(cfg, device),
                 "mixer": _MIXERS[kind][0](cfg, device, generator)}
+    if kind == XATTN:
+        return {
+            "norm1": common.init_norm(cfg, device),
+            "attn": attention.init_attention(cfg, device, generator,
+                                             cross=True),
+            "norm2": common.init_norm(cfg, device),
+            "mlp": ffn.init_ffn(cfg, device, generator),
+            "gate_attn": torch.zeros((), dtype=torch.float32, device=device),
+            "gate_mlp": torch.zeros((), dtype=torch.float32, device=device),
+        }
     p = {
         "norm1": common.init_norm(cfg, device),
         "attn": attention.init_attention(cfg, device, generator),
@@ -120,12 +120,17 @@ def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``generator`` (a ``torch.Generator`` on that device).  The reference's
     initializers and dtypes; its values come from ``jax.random``, so they
     differ (``params_from_jax`` carries them over)."""
-    _check_supported(cfg)
     device = resolve_device(device)
     dt = dtype_of(cfg)
-    params: dict = {"embed": common.embed_init(
-        (cfg.padded_vocab, cfg.d_model), dt, device, generator)}
-    if not cfg.tie_embeddings:
+    params: dict = {}
+    if not cfg.encoder_only or cfg.family != "audio":
+        params["embed"] = common.embed_init(
+            (cfg.padded_vocab, cfg.d_model), dt, device, generator)
+    if cfg.encoder_only:
+        # hubert's head: frame hidden -> unit logits
+        params["unit_head"] = common.dense_param(
+            (cfg.d_model, cfg.padded_vocab), dt, device, generator)
+    elif not cfg.tie_embeddings:
         params["lm_head"] = common.dense_param(
             (cfg.d_model, cfg.padded_vocab), dt, device, generator)
     if cfg.prologue:
@@ -153,8 +158,10 @@ def params_from_jax(cfg: ModelConfig, params: Mapping[str, object],
 
     ``params`` has numpy (or array-like) leaves, or tensors (a snapshot
     read by ``checkpoint.load_checkpoint``); ``blocks`` is stacked on a
-    leading super-block axis, which is split into the port's list.  Leaves
-    keep their dtype (bf16 arrays come through their bits) and layout.
+    leading super-block axis, which is split into the port's list (an
+    ``xattn`` gate, stacked to ``(n_superblocks,)``, becomes a 0-d tensor
+    again).  Leaves keep their dtype (bf16 arrays come through their bits)
+    and layout.
     """
     device = resolve_device(device)
 
@@ -192,10 +199,15 @@ def params_from_jax(cfg: ModelConfig, params: Mapping[str, object],
 def _init_substate(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                    device: torch.device) -> dict:
     """Decode state of one sub-layer (zeros; prefill overwrites): a
-    recurrent mixer's state, or the attention caches (each shared_attn
-    invocation its own)."""
+    recurrent mixer's state, the vision K / V of an ``xattn`` sub-layer
+    (``(B, n_img, kv, hd)`` in the parameter dtype), or the attention
+    caches (each shared_attn invocation its own)."""
     if kind in _MIXERS:
         return _MIXERS[kind][3](cfg, batch, device)
+    if kind == XATTN:
+        shape = (batch, cfg.vision.n_tokens, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+                "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
     window = cfg.sliding_window if kind == LOCAL else None
     return attention.init_decode_cache(cfg, batch, s_max, window=window,
                                        device=device)
@@ -206,7 +218,6 @@ def init_decode_state(cfg: ModelConfig, batch: int, s_max: int,
     """The whole decode state on ``device`` (``None``: the card):
     ``prologue`` sub-layers by name and ``blocks`` a list of super-blocks,
     each a dict of its sub-layers' caches."""
-    _check_supported(cfg)
     device = resolve_device(device)
     state: dict = {}
     if cfg.prologue:
@@ -227,12 +238,27 @@ def init_decode_state(cfg: ModelConfig, batch: int, s_max: int,
 
 def _apply_sublayer(cfg: ModelConfig, kind: str, p, x: torch.Tensor, *,
                     mode: str, positions: Optional[torch.Tensor] = None,
-                    pos: Optional[int] = None, state: Optional[dict] = None
+                    pos: Optional[int] = None, state: Optional[dict] = None,
+                    vision: Optional[torch.Tensor] = None
                     ) -> tuple[torch.Tensor, Optional[dict],
                                Optional[torch.Tensor]]:
     """Returns (x_out, the sub-layer's new state or None, its MoE aux loss
     or None)."""
     h = common.norm_apply(cfg, p["norm1"], x)
+    if kind == XATTN:
+        if mode == "decode":
+            # the vision K / V are fixed during decode: the state passes on
+            a, _ = attention.cross_attention(cfg, p["attn"], h,
+                                             kv_cache=state)
+            new_state = state
+        else:
+            a, new_state = attention.cross_attention(
+                cfg, p["attn"], h, kv_states=vision,
+                return_cache=mode == "prefill")
+        x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * a
+        h = common.norm_apply(cfg, p["norm2"], x)
+        f = ffn.ffn_apply(cfg, p["mlp"], h)
+        return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * f, new_state, None
     if kind in _MIXERS:
         _, apply, decode, _ = _MIXERS[kind]
         if mode == "decode":
@@ -264,8 +290,10 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, p, x: torch.Tensor, *,
     return x + f, new_state, aux
 
 
-def _embed_in(cfg: ModelConfig, params: LM, tokens: torch.Tensor
-              ) -> torch.Tensor:
+def _embed_in(cfg: ModelConfig, params: LM, tokens: Optional[torch.Tensor],
+              embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    if embeds is not None:
+        return embeds.to(dtype_of(cfg))
     x = params["embed"][tokens.long()]
     if cfg.embed_scale:
         # sqrt(d_model) rounded to the parameter dtype first, as in the
@@ -278,23 +306,32 @@ def _embed_in(cfg: ModelConfig, params: LM, tokens: torch.Tensor
 _MODES = ("train", "prefill", "decode")
 
 
-def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor, *,
-            mode: str = "train", states: Optional[dict] = None,
-            pos: Optional[int] = None
+def forward(cfg: ModelConfig, params: LM,
+            tokens: Optional[torch.Tensor] = None, *,
+            embeds: Optional[torch.Tensor] = None,
+            vision: Optional[torch.Tensor] = None, mode: str = "train",
+            states: Optional[dict] = None, pos: Optional[int] = None
             ) -> tuple[torch.Tensor, dict, torch.Tensor]:
     """Trunk forward.  Returns (hidden (B,S,d), new_states, aux_loss), as
-    the reference does.  ``prefill`` returns the decode state of the
-    prompt; ``decode`` takes tokens (B,1) at absolute position ``pos``
-    against ``states``, which it writes in place and returns.  The
-    serving modes run without autograd."""
+    the reference does.  ``embeds`` (B,S,d), cast to the parameter dtype,
+    stand in for ``tokens`` (hubert's frames); ``vision`` (B,N,d_embed),
+    cast likewise, are the states the ``xattn`` sub-layers attend to in
+    train and prefill (decode reads their K / V from ``states``).
+    ``prefill`` returns the decode state of the prompt; ``decode`` takes
+    tokens (B,1) at absolute position ``pos`` against ``states``, which it
+    writes in place and returns.  The serving modes run without
+    autograd."""
     if mode not in _MODES:
         raise ValueError(f"mode {mode!r} is not one of {_MODES}")
     with torch.set_grad_enabled(torch.is_grad_enabled() and mode == "train"):
-        return _forward(cfg, params, tokens, mode, states, pos)
+        return _forward(cfg, params, tokens, embeds, vision, mode, states,
+                        pos)
 
 
-def _forward(cfg, params, tokens, mode, states, pos):
-    x = _embed_in(cfg, params, tokens)
+def _forward(cfg, params, tokens, embeds, vision, mode, states, pos):
+    x = _embed_in(cfg, params, tokens, embeds)
+    if vision is not None:
+        vision = vision.to(dtype_of(cfg))
     b, s, _ = x.shape
     positions = None if mode == "decode" else torch.arange(
         s, dtype=torch.int32, device=x.device).expand(b, s)
@@ -303,7 +340,8 @@ def _forward(cfg, params, tokens, mode, states, pos):
 
     def sub(kind, p, xx, aa, st):
         xx, nst, a = _apply_sublayer(cfg, kind, p, xx, mode=mode,
-                                     positions=positions, pos=pos, state=st)
+                                     positions=positions, pos=pos, state=st,
+                                     vision=vision)
         # the aux loss is added a sub-layer at a time, as the reference's
         # scan carries it
         return xx, nst, aa if a is None else aa + a
@@ -351,7 +389,10 @@ def _forward(cfg, params, tokens, mode, states, pos):
 
 
 def head_weight(cfg: ModelConfig, params: LM) -> torch.Tensor:
-    """The head as ``(d_model, Vpad)``: ``embed.T`` (a view) when tied."""
+    """The head as ``(d_model, Vpad)``: ``unit_head`` for an encoder-only
+    model, ``embed.T`` (a view) when tied, else ``lm_head``."""
+    if cfg.encoder_only:
+        return params["unit_head"]
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
@@ -389,12 +430,15 @@ def token_ce(cfg: ModelConfig, logits: torch.Tensor, targets: torch.Tensor
 
 def lm_loss(cfg: ModelConfig, params: LM, batch: Mapping[str, torch.Tensor]
             ) -> tuple[torch.Tensor, dict]:
-    """Weighted-subset LM loss.
+    """Weighted-subset LM / encoder loss.
 
-    batch: tokens (B,S), targets (B,S), optional weights (B,) summing to 1
-    (uniform by default), optional loss_mask (B,S).  Returns (loss,
+    batch: tokens (B,S) [or embeds (B,S,d) for audio], targets (B,S),
+    optional weights (B,) summing to 1 (uniform by default), optional
+    loss_mask (B,S), optional vision (B,N,d_embed).  Returns (loss,
     metrics)."""
-    h, _, aux = forward(cfg, params, batch["tokens"])
+    h, _, aux = forward(cfg, params, batch.get("tokens"),
+                        embeds=batch.get("embeds"),
+                        vision=batch.get("vision"))
     logits = _head_out(cfg, params, h)
     ce = token_ce(cfg, logits, batch["targets"])               # (B,S) f32
     mask = batch.get("loss_mask")
@@ -417,11 +461,16 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Mapping[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def prefill_step(cfg: ModelConfig, params: LM, tokens: torch.Tensor
+def prefill_step(cfg: ModelConfig, params: LM,
+                 tokens: Optional[torch.Tensor], *,
+                 embeds: Optional[torch.Tensor] = None,
+                 vision: Optional[torch.Tensor] = None
                  ) -> tuple[torch.Tensor, dict]:
-    """Process the whole prompt (B,S); return (the last position's logits
-    (B, Vpad), padded columns at -1e9, and the decode states)."""
-    h, states, _ = forward(cfg, params, tokens, mode="prefill")
+    """Process the whole prompt (B,S) (with its ``vision`` states for an
+    ``xattn`` model); return (the last position's logits (B, Vpad), padded
+    columns at -1e9, and the decode states)."""
+    h, states, _ = forward(cfg, params, tokens, embeds=embeds,
+                           vision=vision, mode="prefill")
     logits = _head_out(cfg, params, h[:, -1:])[:, 0]
     return mask_padded_logits(cfg, logits), states
 
@@ -451,9 +500,12 @@ def selection_proxy(cfg: ModelConfig, params: LM,
     ``proxies.hidden_grad_proxy`` call over the batch's B*S tokens (the
     fused ``hidden_grad`` kernel on the card), where the reference takes an
     unfused einsum.  As there, the softmax runs over the padded vocabulary
-    with no mask.
+    with no mask.  The head is ``head_weight``'s (``unit_head`` for an
+    encoder-only model).
     """
-    h, _, _ = forward(cfg, params, batch["tokens"])
+    h, _, _ = forward(cfg, params, batch.get("tokens"),
+                      embeds=batch.get("embeds"),
+                      vision=batch.get("vision"))
     logits = _head_out(cfg, params, h)
     g = proxy_lib.hidden_grad_proxy(h, logits, batch["targets"],
                                     head_weight(cfg, params))
