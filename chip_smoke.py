@@ -78,9 +78,9 @@ Phases, one JSON line each:
               chunks' bound and the sketch of the others, loader passes);
               and fetched proxy rows bit-equal to the scanned ones;
   9. lm       the LM training driver (``repro_torch.launch.train.main``) at
-              its defaults but 40 steps on gemma-2b at full width and depth
+              its defaults but 10 steps on gemma-2b at full width and depth
               (2 506 172 416 parameters, bf16, GRAD-MATCHPB over a window
-              of 16 micro-batches of 4 x 128 tokens every 20 steps): every
+              of 16 micro-batches of 4 x 128 tokens every 5 steps): every
               selection proxy through the tensor-core ``hidden_grad_tc``
               (32 launches, none of the FFMA ``hidden_grad``), OMP through
               ``corr`` and ``corr_argmax``.  Then both head kernels against
@@ -245,6 +245,20 @@ Phases, one JSON line each:
               against the dense route, within 2e-2 at bf16 and 1e-5 at
               f32 cut to 2 layers; ``serve.main`` refusing it.  The decode
               and route checks reach no kernel;
+ 19. mesh     (after ``lm_vision_audio``) the LM driver twice on gemma-2b
+              at full width (10 steps, a selection every 5): plain, then
+              with ``--mesh-data 1 --mesh-model 1 --fsdp`` on a one-rank
+              NCCL mesh (DTensor parameters, the step inside the hint
+              rules); the losses and picks bit-equal, both runs' seconds
+              a step (DTensor's host cost), ``hidden_grad_tc`` launched
+              and counted in the mesh run.  Before them, a subprocess
+              each on the card's host (all finished before the drivers
+              start, so that each timed step has the host to itself),
+              three dry-run cells at full width on a fake process group
+              (``launch/dryrun.py``): gemma-2b x train_4k on 16 x 16, qwen3-moe-30b-a3b x decode_32k on
+              2 x 16 x 16, llama-3.2-vision-90b x prefill_32k on 16 x 16,
+              each with its per-device bytes, FLOPs per chip, collective
+              bytes and dominant roofline term;
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -404,6 +418,11 @@ MAIN_PATH = {"corr": "gradmatch-pb", "corr_argmax": "gradmatch-pb",
 
 # The LM phase: the driver's defaults on gemma-2b at full size.
 LM_ARGV = ["--arch", "gemma-2b", "--steps", "40"]   # cut from 100 steps
+# the lm phase's driver cut from 40 steps to 10 with a selection every 5
+# (two selections and 32 hidden_grad_tc launches kept) for the mesh phase,
+# which runs it twice
+LM_PHASE_ARGV = ["--arch", "gemma-2b", "--steps", "10", "--select-every",
+                 "5"]
 LM_PARAMS = 2_506_172_416           # gemma-2b's parameters (tied head)
 LM_HG_LIMIT = 1e-4                  # hidden_grad vs plain, of max |out|
 LM_TRACE_STEPS = 3                  # steps timed part by part
@@ -490,6 +509,12 @@ AUDIO_FRAMES = 2048                 # one forward at flash_threshold: the
 #                                     non-causal blockwise route
 AUDIO_F32_LAYERS = 2
 AUDIO_F32_LIMIT = 1e-5              # blockwise vs dense at f32
+# mesh: three dry-run cells (arch, shape, multi-pod), then the lm phase's
+# driver plain and on a one-rank mesh with FSDP, gemma-2b at full width
+MESH_FLAGS = ["--mesh-data", "1", "--mesh-model", "1", "--fsdp"]
+MESH_DRYRUN_CELLS = (("gemma-2b", "train_4k", False),
+                     ("qwen3-moe-30b-a3b", "decode_32k", True),
+                     ("llama-3.2-vision-90b", "prefill_32k", False))
 AUDIO_BF16_LIMIT = 2e-2             # and at bf16 against an f32 forward (the
 #                                     CPU tests' hidden limit), of max
 # |hidden|, or 1.25x the dense route's own distance where that is wider:
@@ -4336,12 +4361,12 @@ def lm_select_and_omp(torch, card: dict, records: dict, phase: str,
 
 
 def phase_lm(torch, np, card: dict, records: dict) -> dict:
-    """The LM training driver at its defaults but 40 steps on gemma-2b
-    (full width and depth), the launch counts set to 0 just before
-    ``main`` and read just after; then, on the trained parameters, the
-    head kernels against the plain version on a real candidate, one
-    selection with the kernels and one with the plain versions, and the
-    timings.  Adds the records of ``hidden_grad_tc``, ``hidden_grad``
+    """The LM training driver at its defaults but 20 steps, a selection
+    every 10, on gemma-2b (full width and depth), the launch counts set
+    to 0 just before ``main`` and read just after; then, on the trained
+    parameters, the head kernels against the plain version on a real
+    candidate, one selection with the kernels and one with the plain
+    versions, and the timings.  Adds the records of ``hidden_grad_tc``, ``hidden_grad``
     (the FFMA kernel at the path's shape, which the path no longer
     launches) and of ``corr`` / ``corr_argmax`` at the path's shapes."""
     import gc
@@ -4354,14 +4379,14 @@ def phase_lm(torch, np, card: dict, records: dict) -> dict:
     from repro_torch.models import lm
     from repro_torch.train.steps import make_lm_proxy_step
 
-    args = train.build_argparser().parse_args(LM_ARGV)
+    args = train.build_argparser().parse_args(LM_PHASE_ARGV)
     dev = torch.device(args.device or "cuda")
     bw, flops = peaks(card["name"])
 
     # 1. the driver, through main; the model seam holds the very model
     # main would build from --seed, so the checks below see its weights.
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
-    drv = lm_driver(torch, np, "lm", "lm", cfg, LM_ARGV)
+    drv = lm_driver(torch, np, "lm", "lm", cfg, LM_PHASE_ARGV)
     model, rep = drv["model"], drv["rep"]
     counts, shapes = drv["run"]["counts"], drv["run"]["shapes"]
     del drv
@@ -6136,6 +6161,100 @@ def phase_lm_vision_audio(torch, np, card: dict, records: dict) -> dict:
     return out
 
 
+_DRYRUN_CELLS = """
+import json, sys
+from repro_torch.launch import dryrun
+for arch, shape, multi_pod in json.loads(sys.argv[1]):
+    r = dryrun.production_cell(arch, shape, multi_pod)
+    print(json.dumps({
+        "arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+        "run_s": r["run_s"], "microbatches": r["microbatches"],
+        "resident_bytes": r["memory"]["resident_bytes"],
+        "peak_device_bytes": r["memory"]["peak_device_bytes"],
+        "fits_80gb": r["memory"]["fits_80gb"],
+        "flops_per_chip": r["hlo_flops_per_chip"],
+        "collective_bytes": r["collectives"]["total_bytes"],
+        "collective_counts": r["collectives"]["counts"],
+        "roofline": r["roofline"],
+        "useful_flops_ratio": r["useful_flops_ratio"]}), flush=True)
+"""
+
+
+def phase_mesh(torch, np, card: dict, records: dict) -> dict:
+    """The mesh layer on the card (phase 19): three full-width dry-run
+    cells, a subprocess each on the host, then, with the host to themselves,
+    the driver plain and on a one-rank NCCL mesh with FSDP, bit-equal,
+    each timed a step.  ``corr``, ``corr_argmax`` and ``hidden_grad_tc``
+    run at the ``lm`` path's shapes on both paths, so its records stand
+    for theirs."""
+    import gc
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    # a process a cell (each installs its own fake group), all at once
+    cells = [subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_CELLS, json.dumps([cell])], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cell in MESH_DRYRUN_CELLS]
+    got = []
+    try:
+        for proc in cells:
+            stdout, stderr = proc.communicate(timeout=600)
+            check(proc.returncode == 0, "a dry-run cell failed: "
+                  + stderr[-2000:])
+            got += [json.loads(line) for line in stdout.splitlines()
+                    if line.startswith("{")]
+    finally:
+        for proc in cells:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    check([(r["arch"], r["shape"]) for r in got]
+          == [(a, s) for a, s, _ in MESH_DRYRUN_CELLS],
+          f"the dry run gave {len(got)} records")
+    for r in got:
+        emit("mesh", what="dryrun", **r)
+    dryrun_s = time.perf_counter() - t_phase
+    # one rank: NCCL's bootstrap needs no interface but the loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    cfg = get_config("gemma-2b")
+    out = {"counts": {}, "shapes": {}, "selection_seconds": {}}
+    reps = {}
+    for path, argv in (("lm-plain", LM_PHASE_ARGV),
+                       ("lm-mesh", LM_PHASE_ARGV + MESH_FLAGS)):
+        for name in ("corr", "corr_argmax", "hidden_grad_tc"):
+            records[name][path] = records[name]["lm"]
+        drv = lm_driver(torch, np, "mesh", path, cfg, argv)
+        reps[path] = drv["rep"]
+        for k, v in drv["run"].items():
+            out[k].update(v)
+        del drv
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain, mesh = reps["lm-plain"], reps["lm-mesh"]
+    check(plain["params"] == mesh["params"] == LM_PARAMS, "the mesh run's "
+          f"parameters {mesh['params']} are not {LM_PARAMS}")
+    check(mesh["mesh"] == {"data": 1, "model": 1} and plain["mesh"] is None,
+          f"the runs' meshes are {plain['mesh']} and {mesh['mesh']}")
+    check(mesh["losses"] == plain["losses"], "the mesh run's losses are "
+          "not the plain run's bit for bit")
+    check(mesh["selections"] == plain["selections"], "the mesh run's picks "
+          "are not the plain run's")
+    steps = len(plain["losses"])
+    emit("mesh", what="driver", smi=card["smi"],
+         plain_s_per_step=plain["wall_s"] / steps,
+         mesh_s_per_step=mesh["wall_s"] / steps,
+         plain_selection_s=plain["selection_s"],
+         mesh_selection_s=mesh["selection_s"],
+         mesh_hidden_grad_tc=out["counts"]["lm-mesh"]["hidden_grad_tc"],
+         losses_equal=True, picks_equal=True)
+    emit("mesh", what="phase", seconds=time.perf_counter() - t_phase,
+         dryrun_seconds=dryrun_s)
+    return out
+
+
 def kernels_line(torch, records: dict, runs) -> list:
     """The ``kernels`` line from the paths' runs (each a dict of counts,
     shapes, routes and selection seconds): every kernel a path launched,
@@ -6273,7 +6392,8 @@ def main() -> int:
     xl = run("lm_xlstm", phase_lm_xlstm, torch, np, card, records)
     va = run("lm_vision_audio", phase_lm_vision_audio, torch, np, card,
              records)
-    runs = (tr, ba, cr, st, pa, sv, lm_, mo, hy, xl, va)
+    me = run("mesh", phase_mesh, torch, np, card, records)
+    runs = (tr, ba, cr, st, pa, sv, lm_, mo, hy, xl, va, me)
     kernels = run("kernels_line", kernels_line, torch, records, runs)
     emit("done", seconds=time.perf_counter() - t_start, phases=phase_s)
     print(card["smi"])

@@ -36,6 +36,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import dtensor as dt
+
 _SEP = "/"
 
 # dtype name -> (numpy storage view, torch view of the same width)
@@ -50,7 +52,8 @@ _TORCH_NAMES = {torch.bfloat16: "bfloat16",
 def _host(leaf) -> tuple[np.ndarray, str]:
     """(a host copy of ``leaf`` that npz can store, its dtype name)."""
     if isinstance(leaf, torch.Tensor):
-        x = leaf.detach()
+        # a DTensor is stored whole: a snapshot has no layout
+        x = dt.gather_full(leaf.detach())
         name = _TORCH_NAMES.get(x.dtype)
         if name is not None:
             np_view, t_view = _VIEW_AS[name]

@@ -21,8 +21,8 @@ Two kinds of parallelism, as in the reference:
 
 The FL gain scan stays plain torch (``greedy.fl_gains_cols``), as the
 reference's runs ``fl_gains_cols`` in jnp rather than its Pallas kernel.
-The mesh helpers ``replicate`` / ``shard_rows`` wait with the mesh
-analogues (ROADMAP.md queue 1, "The rest of the LM side", (g)).
+The mesh helpers ``replicate`` / ``shard_rows`` place a tensor on a
+``DeviceMesh`` (``launch/mesh.py``) as a DTensor.
 """
 
 from __future__ import annotations
@@ -410,3 +410,21 @@ def pmap_partition_omp(parts, targets, valids, k: int, lam: float = 0.5,
         idx = torch.where(idx >= 0, idx - off, -1).to(torch.int32)
         outs.append(tuple(x.to(home) for x in (idx, w, mask, err)))
     return tuple(torch.cat([o[i] for o in outs], dim=0) for i in range(4))
+
+
+# ---------------------------------------------------------------------------
+# mesh placement
+# ---------------------------------------------------------------------------
+
+def replicate(mesh, x: torch.Tensor):
+    """``x`` as a DTensor whole on every rank of ``mesh``."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    return distribute_tensor(x, mesh, [Replicate()] * mesh.ndim)
+
+
+def shard_rows(mesh, x: torch.Tensor, axis: str = "data"):
+    """``x`` as a DTensor with its rows split over the mesh axis ``axis``
+    (whole over the others)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    return distribute_tensor(x, mesh, [Shard(0) if n == axis else Replicate()
+                                       for n in mesh.mesh_dim_names])

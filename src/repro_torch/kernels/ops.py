@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import dtensor as dt
+
 from repro_torch.kernels import corr as corr_kernel
 from repro_torch.kernels import fl_gain as fl_gain_kernel
 from repro_torch.kernels import lastlayer_grad as llg_kernel
@@ -171,7 +173,19 @@ def sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def hidden_grad(logits: torch.Tensor, labels: torch.Tensor,
                 unembed: torch.Tensor) -> torch.Tensor:
     """dL/dh = (softmax(Z) - onehot(Y)) @ W^T for LM heads -> (n, d_h)
-    f32; ``unembed`` is W as (d_h, V)."""
+    f32; ``unembed`` is W as (d_h, V).
+
+    On a mesh (the LM's selection proxy, the one caller that hands in
+    DTensors) each operand is gathered whole, as GSPMD gathers a
+    ``pallas_call``'s operands, the kernel (on meta tensors, the plain
+    version) runs on the whole tensors, and the result comes back as a
+    replicated DTensor."""
+    like = next((a for a in (logits, labels, unembed) if dt.is_dtensor(a)),
+                None)
+    if like is not None:
+        out = hidden_grad(dt.gather_full(logits), dt.gather_full(labels),
+                          dt.gather_full(unembed))
+        return dt.replicated_like(out, like)
     if _FORCE == "ref":
         return ref.hidden_grad_ref(logits, labels, unembed)
     return llg_kernel.hidden_grad_fused(logits, labels, unembed)

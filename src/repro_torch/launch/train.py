@@ -24,27 +24,51 @@ reference's:
     the steps of a run never killed, bit for bit.
 
 It runs on the card unless ``--device cpu`` asks for the CPU; a missing card
-raises.  One device only: ``--mesh-data``/``--mesh-model`` above 1 and
-``--fsdp`` raise (ROADMAP queue 1, "The rest of the LM side", (g)).
-Example::
+raises.
+
+``--mesh-data D --mesh-model M`` (either above 1) or ``--fsdp`` runs it on a
+('data', 'model') mesh of the ranks there are (``launch/mesh.py:
+make_host_mesh``, each axis clamped to them): the parameters are DTensors
+placed by ``distributed.sharding.param_shardings``, each batch is sharded
+over 'data', and the step runs inside the hint rules of ``logical_rules``.
+The selection goes through ``core/distributed.sharded_omp_select`` over
+the 'data' ranks when that axis is above 1 and divides the window, and a
+snapshot restores through ``elastic.reshard_like`` onto any rank count.
+Under ``torchrun`` the driver takes its process group from the environment
+(NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``); a caller may
+install one first; with neither it makes a one-rank group of its own.  A
+group the driver made is destroyed when it returns.  Only rank 0 writes
+snapshots.  Without the three flags the parameters stay plain tensors.
+Examples::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke \\
       --device cpu --steps 100 --select-every 20 --budget 0.25
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch gemma-2b --mesh-data 2 --mesh-model 2 --fsdp
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager, restore_to
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import distributed as dist_lib
 from repro_torch.core import gradmatch as gm_lib
 from repro_torch.data.tokens import TokenStream
 from repro_torch.device import resolve_device
+from repro_torch.distributed import dtensor as dt
+from repro_torch.distributed.sharding import (distribute_model,
+                                              logical_rules, param_shardings)
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import specs as specs_lib
+from repro_torch.launch.elastic import reshard_like
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.common import count_params
 from repro_torch.optim import cosine_with_warmup, sgd
@@ -100,12 +124,37 @@ def main(argv=None, *, stream=None, model: lm_lib.LM | None = None) -> dict:
     ``TokenStream`` and ``lm.init_lm`` from ``--seed``.
     """
     args = build_argparser().parse_args(argv)
-    if args.mesh_data > 1 or args.mesh_model > 1 or args.fsdp:
-        raise NotImplementedError(
-            "the port's driver runs on one device: --mesh-data/--mesh-model "
-            "> 1 and --fsdp are not ported yet (ROADMAP queue 1, \"The "
-            "rest of the LM side\", (g))")
+    if not (args.mesh_data > 1 or args.mesh_model > 1 or args.fsdp):
+        return _run(args, resolve_device(args.device), None, stream, model)
     device = resolve_device(args.device)
+    own = False
+    if not dist.is_initialized() and "LOCAL_RANK" in os.environ:
+        # torchrun: the group from the environment
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        own = True
+    try:
+        mesh = mesh_lib.make_host_mesh(args.mesh_data, args.mesh_model,
+                                       device.type)
+        return _run(args, device, mesh, stream, model)
+    finally:
+        mesh_lib.close_host_group()
+        if own:
+            dist.destroy_process_group()
+
+
+def _gathered(tree):
+    """A snapshot tree with each DTensor gathered whole (a collective:
+    every rank takes part; rank 0 writes)."""
+    if isinstance(tree, dict):
+        return {k: _gathered(v) for k, v in tree.items()}
+    return dt.gather_full(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _run(args, device, mesh, stream, model) -> dict:
+    """The loop, on ``device`` alone (``mesh`` None) or on ``mesh``."""
     if model is not None:
         cfg = model.cfg
     else:
@@ -121,6 +170,10 @@ def main(argv=None, *, stream=None, model: lm_lib.LM | None = None) -> dict:
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
         model = lm_lib.init_lm(cfg, gen, device)
+    shardings = None
+    if mesh is not None:
+        shardings = param_shardings(cfg, model, mesh, fsdp=args.fsdp)
+        model = distribute_model(model, shardings)
     opt = sgd(model.parameters(), cosine_with_warmup(args.lr, 10, args.steps),
               momentum=0.9)
     step_fn = lm_train_step_fn(cfg, model, opt)
@@ -134,6 +187,26 @@ def main(argv=None, *, stream=None, model: lm_lib.LM | None = None) -> dict:
     ckpt = (CheckpointManager(args.checkpoint_dir)
             if args.checkpoint_dir else None)
     params = dict(model.named_parameters())
+    rank = dist.get_rank() if mesh is not None else 0
+    data_ranks = mesh.shape[0] if mesh is not None else 1
+
+    def placed(batch: dict) -> dict:
+        """A batch as DTensors sharded over 'data' (each rank holds the
+        whole batch: the stream is stateless-indexed)."""
+        if mesh is None:
+            return batch
+        from torch.distributed.tensor import distribute_tensor
+        sh = specs_lib.batch_shardings(mesh, batch)
+        return {k: distribute_tensor(v, mesh, sh[k].placements,
+                                     src_data_rank=None)
+                for k, v in batch.items()}
+
+    def restored(tree: dict) -> dict:
+        """Snapshot leaves by parameter name on the device, placed as
+        their parameters."""
+        if mesh is None:
+            return restore_to(tree, device)
+        return reshard_like(tree, {k: shardings[k] for k in tree})
 
     # Current selection over the candidate window (micro-batch granularity).
     k_batches = max(int(args.window * args.budget), 1)
@@ -144,9 +217,11 @@ def main(argv=None, *, stream=None, model: lm_lib.LM | None = None) -> dict:
     if ckpt is not None and ckpt.latest_step() is not None:
         snap = ckpt.restore()
         with torch.no_grad():
-            for name, val in restore_to(snap["params"], device).items():
+            for name, val in restored(snap["params"]).items():
                 params[name].copy_(val)
-        opt.load_state_tree(restore_to(snap["opt_state"], device), params)
+        opt_state = dict(snap["opt_state"])
+        opt_state["slots"] = restored(opt_state.get("slots", {}))
+        opt.load_state_tree(opt_state, params)
         start_step = TokenStream.resume(snap["meta"])
         # The selection in force (the reference's snapshot lacks it, so a
         # resume between selection steps would train on another one).
@@ -165,10 +240,17 @@ def main(argv=None, *, stream=None, model: lm_lib.LM | None = None) -> dict:
             window_round = step // args.select_every
             ts = time.perf_counter()
             if args.strategy == "gradmatch-pb":
-                proxies = torch.stack([
-                    proxy_fn(stream.batch(window_round, s)).mean(dim=0)
-                    for s in range(args.window)])
-                sel = gm_lib.gradmatch(proxies, k_batches, lam=args.lam)
+                with _rules(mesh):
+                    proxies = dt.gather_full(torch.stack([
+                        proxy_fn(placed(stream.batch(window_round, s))
+                                 ).mean(dim=0)
+                        for s in range(args.window)]))
+                if data_ranks > 1 and args.window % data_ranks == 0:
+                    sel = dist_lib.sharded_omp_select(
+                        proxies, proxies.sum(dim=0), k_batches,
+                        group=mesh.get_group("data"), lam=args.lam)
+                else:
+                    sel = gm_lib.gradmatch(proxies, k_batches, lam=args.lam)
                 m = sel.mask.cpu().numpy()
                 sel_batches = sel.indices.cpu().numpy()[m]
                 sel_weights = sel.weights.cpu().numpy()[m]
@@ -190,32 +272,47 @@ def main(argv=None, *, stream=None, model: lm_lib.LM | None = None) -> dict:
         batch["weights"] = torch.full(
             (args.micro_batch,), 1.0 / args.micro_batch,
             dtype=torch.float32, device=device) * float(scale)
-        metrics = step_fn(batch)
-        losses.append(float(metrics["loss"]))
+        with _rules(mesh):
+            metrics = step_fn(placed(batch))
+        losses.append(float(dt.gather_full(metrics["loss"])))
 
         if ckpt is not None and (step + 1) % args.checkpoint_every == 0:
-            ckpt.save(step + 1, {
+            tree = {
                 "params": params,
                 "opt_state": opt.state_tree(params),
                 "meta": {"step": step + 1, "seed": args.seed},
                 "selection": {"batches": np.asarray(sel_batches, np.int64),
                               "weights": sel_weights},
-            })
+            }
+            if mesh is not None:
+                tree = _gathered(tree)
+            if rank == 0:
+                ckpt.save(step + 1, tree)
 
     if ckpt is not None:
         ckpt.wait()
     wall = time.perf_counter() - t0
     report = {
         "arch": args.arch, "strategy": args.strategy,
+        "mesh": None if mesh is None else dict(zip(mesh.mesh_dim_names,
+                                                   mesh.shape)),
         "loss_first": float(np.mean(losses[:5])),
         "loss_last": float(np.mean(losses[-5:])),
         "steps": args.steps, "start_step": start_step, "wall_s": wall,
         "selection_s": sel_seconds,
         "params": count_params(model), "device": str(device),
     }
-    print(report)
+    if rank == 0:
+        print(report)
     report.update(losses=losses, selections=selections)
     return report
+
+
+def _rules(mesh):
+    """The mesh's hint rules (and implicit replication), or nothing."""
+    import contextlib
+    return (contextlib.nullcontext() if mesh is None
+            else dt.mesh_mode(mesh, logical_rules(mesh)))
 
 
 if __name__ == "__main__":

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import dtensor as dt
+from repro_torch.distributed import hints
 from repro_torch.models import common
 from repro_torch.models.common import apply_rope, dtype_of, softcap
 
@@ -71,7 +73,7 @@ def _project_q(cfg, p, x: torch.Tensor) -> torch.Tensor:
     q = x @ p["wq"]
     if cfg.attn_bias:
         q = q + p["bq"]
-    return q.reshape(*x.shape[:-1], cfg.n_heads, cfg.head_dim)
+    return dt.reshape(q, *x.shape[:-1], cfg.n_heads, cfg.head_dim)
 
 
 def _project_kv(cfg, p, x: torch.Tensor
@@ -81,7 +83,7 @@ def _project_kv(cfg, p, x: torch.Tensor
     if cfg.attn_bias:
         k, v = k + p["bk"], v + p["bv"]
     shape = (*x.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
-    return k.reshape(shape), v.reshape(shape)
+    return dt.reshape(k, shape), dt.reshape(v, shape)
 
 
 def _qk_norm(cfg, p, q: torch.Tensor, k: torch.Tensor):
@@ -103,7 +105,7 @@ def _attend(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     group = h // kvh
-    qg = q.reshape(b, sq, kvh, group, d)
+    qg = dt.reshape(q, b, sq, kvh, group, d)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
     logits = logits * _scale(d)
     if cfg.attn_softcap is not None:
@@ -115,7 +117,32 @@ def _attend(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.where(mask, logits, MASK_VALUE)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(b, sq, h * d)
+    return dt.reshape(out, b, sq, h * d)
+
+
+def _heads(fn, q, k, v, mask=None):
+    """``fn(q, k, v, mask)``, the attention core, on each rank's batch
+    rows and heads of a mesh (``dtensor.local_heads``); a mask with a
+    leading batch dim splits with the rows.  Where the 'model' axis
+    divides the query heads but not the KV heads, and a rank's query
+    heads all read one KV head (the group a multiple of a rank's heads),
+    the query heads split and each rank takes its one KV head from the
+    whole K / V."""
+    mb = (0 if mask is not None and mask.dim() == 3
+          and mask.shape[0] == q.shape[0] else None)
+    h, kvh = q.shape[2], k.shape[2]
+    m = dt.axis_ranks(q, "model")
+    if m > 1 and kvh % m and not h % m and (h // kvh) % (h // m) == 0:
+        first = dt.axis_rank(q, "model") * (h // m) // (h // kvh)
+
+        def own_kv(q, k, v, mask):
+            return fn(q, k[:, :, first:first + 1], v[:, :, first:first + 1],
+                      mask)
+
+        return dt.local_heads(own_kv, (q, k, v, mask), (0, 0, 0, mb),
+                              (2, None, None, None), (0,), (2,))
+    return dt.local_heads(fn, (q, k, v, mask), (0, 0, 0, mb),
+                          (2, 2, 2, None), (0,), (2,))
 
 
 def _tile_mask(qoff, koff, tq, tk, causal, window, device):
@@ -151,9 +178,9 @@ def _attend_blockwise(cfg, q, k, v, *, causal: bool,
     assert nq * tq == sq and nk * tk == sk, (sq, sk, tq, tk)
     scale = _scale(d)
     dev = q.device
-    qr = q.reshape(b, nq, tq, kvh, g, d)
-    kr = k.reshape(b, nk, tk, kvh, d)
-    vr = v.reshape(b, nk, tk, kvh, d)
+    qr = dt.reshape(q, b, nq, tq, kvh, g, d)
+    kr = dt.reshape(k, b, nk, tk, kvh, d)
+    vr = dt.reshape(v, b, nk, tk, kvh, d)
     tiles = []
     for qi in range(nq):
         qoff = qi * tq
@@ -183,7 +210,7 @@ def _attend_blockwise(cfg, q, k, v, *, causal: bool,
                 vr[:, ki].float())
             m = m_new
         out = acc / torch.clamp_min(l, 1e-30)[..., None]     # (b,kvh,g,tq,d)
-        tiles.append(out.permute(0, 3, 1, 2, 4).reshape(b, tq, h * d))
+        tiles.append(dt.reshape(out.permute(0, 3, 1, 2, 4), b, tq, h * d))
     return torch.cat(tiles, dim=1).to(v.dtype)
 
 
@@ -204,8 +231,14 @@ def self_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if s >= cfg.flash_threshold:
-        out = _attend_blockwise(cfg, q, k, v, causal=cfg.causal,
-                                window=window)
+        # the reference's 'q_full' / 'kv_full' hints (no rule in the
+        # default table): a driver may pin the Q / K / V layouts once
+        # before the tile loops
+        q = hints.constrain(q, "q_full")
+        k = hints.constrain(k, "kv_full")
+        v = hints.constrain(v, "kv_full")
+        out = _heads(lambda q, k, v, _: _attend_blockwise(
+            cfg, q, k, v, causal=cfg.causal, window=window), q, k, v)
     else:
         if not cfg.causal:
             mask = None
@@ -213,7 +246,8 @@ def self_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
             mask = common.window_mask(s, s, 0, window, x.device)
         else:
             mask = common.causal_mask(s, s, 0, x.device)
-        out = _attend(cfg, q, k, v, mask)
+        out = _heads(lambda q, k, v, m: _attend(cfg, q, k, v, m), q, k, v,
+                     mask)
     y = _out_proj(cfg, p, out)
     if not return_cache:
         return y, None
@@ -246,7 +280,9 @@ def cross_attention(cfg, p, x: torch.Tensor,
         q = common.rms_head_norm(q, p["q_norm"])
         if kv_cache is None:
             k = common.rms_head_norm(k, p["k_norm"])
-    y = _out_proj(cfg, p, _attend(cfg, q, k, v, None))
+    y = _out_proj(cfg, p, _heads(lambda q, k, v, _: _attend(cfg, q, k, v,
+                                                             None),
+                                 q, k, v))
     return y, ({"k": k, "v": v} if return_cache else None)
 
 
@@ -309,7 +345,7 @@ def _decode_attend_blockwise(cfg, q, k, v, pos: int) -> torch.Tensor:
                          f"a multiple of flash_block_kv ({tk})")
     scale = _scale(d)
     dev = q.device
-    qg = q.reshape(b, 1, kvh, g, d).float()
+    qg = dt.reshape(q, b, 1, kvh, g, d).float()
     m = torch.full((b, kvh, g, 1), _M_INIT, device=dev)
     l = torch.zeros((b, kvh, g, 1), device=dev)
     acc = torch.zeros((b, kvh, g, 1, d), device=dev)
@@ -328,7 +364,7 @@ def _decode_attend_blockwise(cfg, q, k, v, pos: int) -> torch.Tensor:
             "bkgqs,bskd->bkgqd", pm.to(v.dtype).float(), vt.float())
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]       # (b,kvh,g,1,d)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h * d).to(v.dtype)
+    return dt.reshape(out.permute(0, 3, 1, 2, 4), b, 1, h * d).to(v.dtype)
 
 
 def decode_self_attention(cfg, p, x: torch.Tensor, cache: dict, pos,
@@ -361,9 +397,10 @@ def decode_self_attention(cfg, p, x: torch.Tensor, cache: dict, pos,
         k[:, pos] = k_new[:, 0].to(k.dtype)
         v[:, pos] = v_new[:, 0].to(v.dtype)
         if k.shape[1] >= cfg.flash_threshold:
-            out = _decode_attend_blockwise(cfg, q, k, v, pos)
+            out = _heads(lambda q, k, v, _: _decode_attend_blockwise(
+                cfg, q, k, v, pos), q, k, v)
             return _out_proj(cfg, p, out), cache
         kv_pos = torch.arange(k.shape[1], device=x.device)
         mask = (kv_pos <= pos)[None, None, :]                # (1, 1, S)
-    out = _attend(cfg, q, k, v, mask)
+    out = _heads(lambda q, k, v, m: _attend(cfg, q, k, v, m), q, k, v, mask)
     return _out_proj(cfg, p, out), cache

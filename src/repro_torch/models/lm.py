@@ -40,6 +40,12 @@ each invocation keeps its own KV cache in its super-block's state.  The
 MoE load-balance loss is summed over the prologue and the blocks, through
 remat, as the reference's scan carries it.
 
+On a mesh (parameters and batch as DTensors, ``launch/train.py``,
+``launch/dryrun.py``) the residual stream is pinned to the ``residual``
+rule after each attention or FFN add, one point more than the reference's
+(after the attention add): DTensor would otherwise carry the row-parallel
+output's partial sum into the next norm and gather the FFN's weights.
+
 The weighted loss is the GRAD-MATCH integration point: ``lm_loss`` takes
 per-sequence weights ``w`` (the OMP output, summing to 1) and computes
 ``sum_i w_i * meanCE_i + aux``.  ``selection_proxy`` gives each sequence's
@@ -58,6 +64,8 @@ from repro_torch.configs.base import (LOCAL, MAMBA, MLSTM, SHARED_ATTN,
                                       SLSTM, XATTN, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.core import proxies as proxy_lib
+from repro_torch.distributed import dtensor as dt
+from repro_torch.distributed import hints
 from repro_torch.models import attention, common, ffn, moe, ssm, xlstm
 from repro_torch.models.common import ParamTree, dtype_of
 
@@ -255,10 +263,12 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, p, x: torch.Tensor, *,
             a, new_state = attention.cross_attention(
                 cfg, p["attn"], h, kv_states=vision,
                 return_cache=mode == "prefill")
-        x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * a
+        x = hints.constrain(x + torch.tanh(p["gate_attn"]).to(x.dtype) * a,
+                            "residual")
         h = common.norm_apply(cfg, p["norm2"], x)
         f = ffn.ffn_apply(cfg, p["mlp"], h)
-        return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * f, new_state, None
+        x = x + torch.tanh(p["gate_mlp"]).to(x.dtype) * f
+        return hints.constrain(x, "residual"), new_state, None
     if kind in _MIXERS:
         _, apply, decode, _ = _MIXERS[kind]
         if mode == "decode":
@@ -266,7 +276,7 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, p, x: torch.Tensor, *,
         else:
             y, new_state = apply(cfg, p["mixer"], h, state=state,
                                  return_state=mode == "prefill")
-        return x + y, new_state, None
+        return hints.constrain(x + y, "residual"), new_state, None
     window = cfg.sliding_window if kind == LOCAL else None
     if mode == "decode":
         a, new_state = attention.decode_self_attention(
@@ -277,7 +287,7 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, p, x: torch.Tensor, *,
             return_cache=mode == "prefill")
     if cfg.post_norm:
         a = common.norm_apply(cfg, p["post_norm1"], a)
-    x = x + a
+    x = hints.constrain(x + a, "residual")
     h = common.norm_apply(cfg, p["norm2"], x)
     aux = None
     if cfg.uses_moe:
@@ -287,14 +297,14 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, p, x: torch.Tensor, *,
         f = ffn.ffn_apply(cfg, p["mlp"], h)
     if cfg.post_norm:
         f = common.norm_apply(cfg, p["post_norm2"], f)
-    return x + f, new_state, aux
+    return hints.constrain(x + f, "residual"), new_state, aux
 
 
 def _embed_in(cfg: ModelConfig, params: LM, tokens: Optional[torch.Tensor],
               embeds: Optional[torch.Tensor]) -> torch.Tensor:
     if embeds is not None:
         return embeds.to(dtype_of(cfg))
-    x = params["embed"][tokens.long()]
+    x = dt.vocab_lookup(params["embed"], tokens)
     if cfg.embed_scale:
         # sqrt(d_model) rounded to the parameter dtype first, as in the
         # reference.
@@ -400,7 +410,8 @@ def _head_out(cfg: ModelConfig, params: LM, h: torch.Tensor
               ) -> torch.Tensor:
     h = common.norm_apply(cfg, params["final_norm"], h)
     logits = h @ head_weight(cfg, params)
-    return common.softcap(logits, cfg.logit_softcap)
+    logits = common.softcap(logits, cfg.logit_softcap)
+    return hints.constrain(logits, "logits")
 
 
 def mask_padded_logits(cfg: ModelConfig, logits: torch.Tensor
@@ -419,7 +430,9 @@ def mask_padded_logits(cfg: ModelConfig, logits: torch.Tensor
 def token_ce(cfg: ModelConfig, logits: torch.Tensor, targets: torch.Tensor
              ) -> torch.Tensor:
     """Stable per-token CE in f32.  logits (..., Vpad), targets (...)."""
-    lg = logits.float()
+    # on a mesh, the vocabulary whole on every rank (one gather; DTensor
+    # would gather it for the log-sum-exp anyway)
+    lg = dt.unshard(logits.float(), -1)
     if cfg.padded_vocab != cfg.vocab_size:
         v = torch.arange(cfg.padded_vocab, device=lg.device) < cfg.vocab_size
         lg = torch.where(v, lg, -1e9)

@@ -34,9 +34,13 @@ Where the port parts from the reference's code, not its numbers:
   same kind, is replaced by the same per-token sum (``_Dispatch``), so a
   weighted step, and remat's recomputed forward, give the same bits on
   every run.
-- The reference's ``hints.constrain`` calls pin the routed activations
-  for the expert-parallel all-to-all of a mesh.  On one card they are
-  no-ops, and are dropped.
+
+On a mesh (DTensor parameters and activations) each rank routes and
+dispatches its own token groups (``dtensor.rows_local``: a group's sort
+and scatters need the group whole), the reference's ``hints.constrain``
+calls pin the routed activations ``moe_dispatch`` / ``moe_combine``
+(experts over the model axis), and the combine gathers each group's
+expert outputs back before its per-token sums.
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import dtensor as dt
+from repro_torch.distributed import hints
 from repro_torch.models import common, ffn
 from repro_torch.models.common import dtype_of
 
@@ -186,6 +192,13 @@ class _Dispatch(torch.autograd.Function):
         return _token_sum(grad.reshape(g, e * c, d), slots), None, None
 
 
+def _experts(xe, w_gate, w_up, w_down):
+    """The experts' gated SiLU FFN on the routed tokens (G, E, C, d)."""
+    h = torch.einsum("gecd,edf->gecf", xe, w_gate)
+    h = F.silu(h) * torch.einsum("gecd,edf->gecf", xe, w_up)
+    return torch.einsum("gecf,efd->gecd", h, w_down)
+
+
 def moe_apply(cfg, p, x: torch.Tensor, group: str = "seq"
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), aux loss (), f32).
@@ -194,21 +207,47 @@ def moe_apply(cfg, p, x: torch.Tensor, group: str = "seq"
     group='batch': one group of all tokens (decode, S == 1)."""
     m = cfg.moe
     b, s, d = x.shape
-    xg = x.reshape(1, b * s, d) if group == "batch" else x
-    g, t, _ = xg.shape
+    xg = dt.reshape(x, 1, b * s, d) if group == "batch" else x
+    t = xg.shape[1]
     cap = capacity_of(cfg, t)
 
-    top_i, top_w, aux = _route(cfg, p["router"], xg)
-    idx, cw, slots = _dispatch(top_i, top_w, m.n_experts, cap)
-    xe = _Dispatch.apply(xg, idx, slots)                      # (G, E, C, d)
+    def route(xg, router):
+        top_i, top_w, aux = _route(cfg, router, xg)
+        idx, cw, slots = _dispatch(top_i, top_w, m.n_experts, cap)
+        xe = _Dispatch.apply(xg, idx, slots)                  # (G, E, C, d)
+        return xe, cw, slots, aux
 
-    h = torch.einsum("gecd,edf->gecf", xe, p["w_gate"])
-    h = F.silu(h) * torch.einsum("gecd,edf->gecf", xe, p["w_up"])
-    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    if dt.is_dtensor(xg):
+        # each rank's groups: its aux loss as a value a group, whose mean
+        # over all the groups is the mean of the ranks' (as many groups
+        # each)
+        def local(xg, router):
+            xe, cw, slots, aux = route(xg, router)
+            return xe, cw, slots, aux.repeat(xg.shape[0])
 
-    prod = ye * cw[..., None]
-    y = _token_sum(prod.reshape(g, m.n_experts * cap, d), slots)
-    y = y.reshape(b, s, d)
+        xe, cw, slots, aux = dt.rows_local(local, (xg,), (p["router"],))
+        aux = aux.mean()
+    else:
+        xe, cw, slots, aux = route(xg, p["router"])
+    xe = hints.constrain(xe, "moe_dispatch")
+
+    weights = (xe, p["w_gate"], p["w_up"], p["w_down"])
+    if dt.is_dtensor(xe):
+        # expert-parallel: each rank runs its experts on its token groups
+        # (the weights gathered over any FSDP axis)
+        w_pl = dt.follow(xe, {1: 0})
+        ye = dt.local_map(_experts, weights,
+                          (xe.placements, w_pl, w_pl, w_pl), xe.placements)
+    else:
+        ye = _experts(*weights)
+    ye = hints.constrain(ye, "moe_combine")
+
+    def combine(prod, slots):
+        return _token_sum(prod.reshape(prod.shape[0], m.n_experts * cap, d),
+                          slots)
+
+    y = dt.rows_local(combine, (ye * cw[..., None], slots))
+    y = dt.reshape(y, b, s, d)
 
     if m.n_shared_experts:
         y = y + ffn.ffn_apply(_shared_cfg(cfg), p["shared"], x)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import dtensor as dt
 from repro_torch.models import common
 from repro_torch.models.common import dtype_of
 
@@ -101,10 +102,10 @@ def _ssd_chunked(xh, dtv, bmat, cmat, a, chunk: int, state0):
                          f"the SSD chunk {q}")
     nc = t // q
 
-    xc = xh.reshape(b, nc, q, h, p).float()
-    dtc = dtv.reshape(b, nc, q, h)
-    bc = bmat.reshape(b, nc, q, n).float()
-    cc = cmat.reshape(b, nc, q, n).float()
+    xc = dt.reshape(xh, b, nc, q, h, p).float()
+    dtc = dt.reshape(dtv, b, nc, q, h)
+    bc = dt.reshape(bmat, b, nc, q, n).float()
+    cc = dt.reshape(cmat, b, nc, q, n).float()
 
     da = dtc * a                                          # (B,nc,Q,H) <= 0
     cum = da.cumsum(2)                                    # within a chunk
@@ -137,7 +138,7 @@ def _ssd_chunked(xh, dtv, bmat, cmat, a, chunk: int, state0):
 
     y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp", cc, s_prevs,
                            torch.exp(cum))
-    return (y_intra + y_inter).reshape(b, t, h, p), s
+    return dt.reshape(y_intra + y_inter, b, t, h, p), s
 
 
 def init_state(cfg, batch: int, device: str | torch.device | None = None
@@ -183,10 +184,15 @@ def mamba_apply(cfg, p, x: torch.Tensor, state: Optional[dict] = None,
     st = state or init_state(cfg, b, x.device)
     xs, z, bm, cm, dtv, tails = _project(p, x, st)
     a = -torch.exp(p["a_log"])
-    xh = xs.reshape(b, t, nh, hp)
-    y, s_new = _ssd_chunked(xh, dtv, bm, cm, a, cfg.ssm.chunk, st["ssd"])
+    xh = dt.reshape(xs, b, t, nh, hp)
+    # on a mesh, each rank scans its batch rows and heads
+    y, s_new = dt.local_heads(
+        _ssd_chunked, (xh, dtv, bm, cm, a, cfg.ssm.chunk, st["ssd"]),
+        (0, 0, 0, 0, None, None, 0), (2, 2, None, None, 0, None, 1),
+        (0, 0), (2, 1))
     y = y + p["d_skip"][None, None, :, None] * xh.float()
-    y = _gated_rmsnorm(y.reshape(b, t, d_in).to(x.dtype), z, p["gate_norm"])
+    y = _gated_rmsnorm(dt.reshape(y, b, t, d_in).to(x.dtype), z,
+                        p["gate_norm"])
     out = y @ p["out_proj"]
     if not return_state:
         return out, None
@@ -200,12 +206,13 @@ def mamba_decode(cfg, p, x: torch.Tensor, state: dict):
     xs, z, bm, cm, dtv, tails = _project(p, x, state)
     dtv = dtv[:, 0]                                           # (B,H)
     a = -torch.exp(p["a_log"])
-    xh = xs.reshape(b, nh, hp).float()
+    xh = dt.reshape(xs, b, nh, hp).float()
     bmf, cmf = bm[:, 0].float(), cm[:, 0].float()
     decay = torch.exp(dtv * a)
     upd = torch.einsum("bh,bhp,bn->bhpn", dtv, xh, bmf)
     s_new = decay[:, :, None, None] * state["ssd"] + upd
     y = torch.einsum("bhpn,bn->bhp", s_new, cmf)
     y = y + p["d_skip"][None, :, None] * xh
-    y = _gated_rmsnorm(y.reshape(b, 1, d_in).to(x.dtype), z, p["gate_norm"])
+    y = _gated_rmsnorm(dt.reshape(y, b, 1, d_in).to(x.dtype), z,
+                        p["gate_norm"])
     return y @ p["out_proj"], {"ssd": s_new, **tails}

@@ -41,6 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import dtensor as dt
+from repro_torch.distributed import hints
 from repro_torch.models import common
 from repro_torch.models.common import dtype_of
 from repro_torch.models.ssm import _causal_conv
@@ -117,7 +119,7 @@ def _mlstm_chunk_scan(q, k, v, ig, fg, chunk: int, state):
     qc, nc = _chunking(t, chunk)
 
     def rc(x):  # (B,T,...) -> (B,NC,Q,...)
-        return x.reshape(b, nc, qc, *x.shape[2:])
+        return dt.reshape(x, b, nc, qc, *x.shape[2:])
 
     qs, ks, vs, igs, fgs = rc(q), rc(k), rc(v), rc(ig), rc(fg)
     c_prev, n_prev, m_prev = state
@@ -153,7 +155,8 @@ def _mlstm_chunk_scan(q, k, v, ig, fg, chunk: int, state):
         n_prev = coef[..., None] * n_prev + torch.einsum(
             "bqh,bqhk->bhk", u_end, ki)
         m_prev = bcum[:, -1] + g_end
-    return torch.stack(hs, 1).reshape(b, t, h, dv), (c_prev, n_prev, m_prev)
+    return (dt.reshape(torch.stack(hs, 1), b, t, h, dv),
+            (c_prev, n_prev, m_prev))
 
 
 def _mlstm_chunkwise_parallel(q, k, v, ig, fg, chunk: int, state):
@@ -170,12 +173,12 @@ def _mlstm_chunkwise_parallel(q, k, v, ig, fg, chunk: int, state):
     qc, nc = _chunking(t, chunk)
 
     def rc(x):  # (B,T,...) -> (B,NC,Q,...)
-        return x.reshape(b, nc, qc, *x.shape[2:])
+        return dt.reshape(x, b, nc, qc, *x.shape[2:])
 
     qs, ks, vs, igs, fgs = rc(q), rc(k), rc(v), rc(ig), rc(fg)
 
     # ---- phase A: per-chunk quantities, all chunks at once ---------------
-    bcum = F.logsigmoid(fgs).cumsum(2)             # (B,NC,Q,H)
+    bcum = dt.pointwise(F.logsigmoid, fgs).cumsum(2)   # (B,NC,Q,H)
     ib = igs - bcum
     a = torch.cummax(ib, dim=2).values             # running max in a chunk
     a_end = a[:, :, -1]                            # (B,NC,H)
@@ -183,7 +186,9 @@ def _mlstm_chunkwise_parallel(q, k, v, ig, fg, chunk: int, state):
 
     # chunk summaries relative to a_end (ib <= a_end within the chunk)
     u_p = torch.exp(ib - a_end[:, :, None])        # (B,NC,Q,H) <= 1
-    u_c = torch.einsum("bcqhk,bcqhd->bchkd", u_p[..., None] * ks, vs)
+    u_c = hints.constrain(
+        torch.einsum("bcqhk,bcqhd->bchkd", u_p[..., None] * ks, vs),
+        "mlstm_chunk_state")
     nu_c = torch.einsum("bcqh,bcqhk->bchk", u_p, ks)
 
     # intra-chunk attention-like part relative to a_t (the row max)
@@ -207,7 +212,8 @@ def _mlstm_chunkwise_parallel(q, k, v, ig, fg, chunk: int, state):
                   + su[..., None, None] * u_c[:, ci])
         n_prev = coef[..., None] * n_prev + su[..., None] * nu_c[:, ci]
         m_prev = bcum_end[:, ci] + g_end
-    c_prevs = torch.stack(c_prevs, 1)              # (B,NC,H,dk,dv)
+    c_prevs = hints.constrain(torch.stack(c_prevs, 1),
+                              "mlstm_chunk_state")  # (B,NC,H,dk,dv)
     n_prevs = torch.stack(n_prevs, 1)              # (B,NC,H,dk)
     m_prevs = torch.stack(m_prevs, 1)              # (B,NC,H)
 
@@ -222,7 +228,7 @@ def _mlstm_chunkwise_parallel(q, k, v, ig, fg, chunk: int, state):
     den = r * intra_den + carry_coef * inter_den
     floor = torch.exp(torch.clamp(-m_t, max=_M_CLAMP))
     hout = num / torch.maximum(den.abs(), floor)[..., None]
-    return hout.reshape(b, t, h, dv), (c_prev, n_prev, m_prev)
+    return dt.reshape(hout, b, t, h, dv), (c_prev, n_prev, m_prev)
 
 
 def init_mlstm_state(cfg, batch: int,
@@ -252,9 +258,11 @@ def _mlstm_project(cfg, p, x: torch.Tensor, conv_tail):
     z = x @ p["z_proj"]
     c, tail = _causal_conv(up, p["conv"], conv_tail)
     c = F.silu(c)
-    q = (c @ p["wq"]).reshape(b, t, h, dk).float() / math.sqrt(dk)
-    k = (c @ p["wk"]).reshape(b, t, h, dk).float()
-    v = up.reshape(b, t, h, dv).float()
+    q = hints.constrain(dt.reshape(c @ p["wq"], b, t, h, dk),
+                        "mlstm_qk").float() / math.sqrt(dk)
+    k = hints.constrain(dt.reshape(c @ p["wk"], b, t, h, dk),
+                        "mlstm_qk").float()
+    v = dt.reshape(up, b, t, h, dv).float()
     ig = (c @ p["wi_gate"]).float() + p["b_i"]
     fg = (c @ p["wf_gate"]).float() + p["b_f"]
     return z, q, k, v, ig, fg, tail
@@ -267,7 +275,7 @@ def _head_norm_gate(p, hmat: torch.Tensor, z: torch.Tensor,
     ms = hmat.square().mean(-1, keepdim=True)
     hn = hmat * torch.rsqrt(ms + 1e-6)
     b, t = hmat.shape[:2]
-    hn = hn.reshape(b, t, -1) * p["head_norm"]
+    hn = dt.reshape(hn, b, t, -1) * p["head_norm"]
     return (hn * F.silu(z.float())).to(x_dtype)
 
 
@@ -277,8 +285,15 @@ def mlstm_apply(cfg, p, x: torch.Tensor, state: Optional[dict] = None,
     after the last token if ``return_state``, else None)."""
     st = state or init_mlstm_state(cfg, x.shape[0], x.device)
     z, q, k, v, ig, fg, tail = _mlstm_project(cfg, p, x, st["conv"])
-    h, (c_new, n_new, m_new) = _mlstm_chunkwise_parallel(
-        q, k, v, ig, fg, cfg.xlstm.chunk, (st["C"], st["n"], st["m"]))
+    def scan(q, k, v, ig, fg, c, n, m):
+        h, state = _mlstm_chunkwise_parallel(q, k, v, ig, fg,
+                                             cfg.xlstm.chunk, (c, n, m))
+        return (h, *state)
+
+    # on a mesh, each rank scans its batch rows and heads
+    h, c_new, n_new, m_new = dt.local_heads(
+        scan, (q, k, v, ig, fg, st["C"], st["n"], st["m"]),
+        (0,) * 8, (2, 2, 2, 2, 2, 1, 1, 1), (0,) * 4, (2, 1, 1, 1))
     y = _head_norm_gate(p, h, z, x.dtype) @ p["down_proj"]
     if not return_state:
         return y, None
@@ -291,7 +306,7 @@ def mlstm_decode(cfg, p, x: torch.Tensor, state: dict):
     z, q, k, v, ig, fg, tail = _mlstm_project(cfg, p, x, state["conv"])
     q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]             # (B,H,dk/dv)
     i1, f1 = ig[:, 0], fg[:, 0]                        # (B,H)
-    logf_m = F.logsigmoid(f1) + state["m"]
+    logf_m = dt.pointwise(F.logsigmoid, f1) + state["m"]
     m_new = torch.maximum(logf_m, i1)
     coef_f = torch.exp(logf_m - m_new)
     coef_i = torch.exp(i1 - m_new)
@@ -366,13 +381,14 @@ def _slstm_cell(cfg, r_all, b_all, x4, state):
     ``_recurrent``; state a dict of (B,d) f32.  Each gate's
     pre-activation is the reference's ``x + rec + b``, the four gates in
     one operation.  Returns (h, the new state)."""
-    h_heads = state["h"].reshape(-1, cfg.n_heads,
-                                 cfg.d_model // cfg.n_heads)
-    rec = torch.einsum("bhd,hdge->gbhe", h_heads, r_all).reshape(x4.shape)
+    h_heads = dt.reshape(state["h"], -1, cfg.n_heads,
+                         cfg.d_model // cfg.n_heads)
+    rec = dt.reshape(torch.einsum("bhd,hdge->gbhe", h_heads, r_all),
+                     x4.shape)
     z_pre, i_pre, f_pre, o_pre = (x4 + rec + b_all).unbind(0)
     z = torch.tanh(z_pre)
     o = torch.sigmoid(o_pre)
-    logf_m = F.logsigmoid(f_pre) + state["m"]
+    logf_m = dt.pointwise(F.logsigmoid, f_pre) + state["m"]
     m_new = torch.maximum(logf_m, i_pre)
     coef_f = torch.exp(logf_m - m_new)
     coef_i = torch.exp(i_pre - m_new)
@@ -404,13 +420,24 @@ def slstm_apply(cfg, p, x: torch.Tensor, state: Optional[dict] = None,
     the state after the last token if ``return_state``, else None)."""
     st = state or init_slstm_state(cfg, x.shape[0], x.device)
     r_all, b_all = _recurrent(p)
-    hs = []
-    # unbind: one view a step, whose backward is one stack for all T
-    for x4 in _slstm_inputs(p, x).unbind(2):           # (4,B,d) a step
-        h, st = _slstm_cell(cfg, r_all, b_all, x4, st)
-        hs.append(h)
-    y = _slstm_ff(cfg, p, torch.stack(hs, 1), x.dtype)   # (B,T,d) f32 in
-    return y, (st if return_state else None)
+
+    def scan(x4s, r_all, b_all, h, c, n, m):
+        st = {"h": h, "c": c, "n": n, "m": m}
+        hs = []
+        # unbind: one view a step, whose backward is one stack for all T
+        for x4 in x4s.unbind(2):                       # (4,B,d) a step
+            h, st = _slstm_cell(cfg, r_all, b_all, x4, st)
+            hs.append(h)
+        return torch.stack(hs, 1), st["h"], st["c"], st["n"], st["m"]
+
+    # on a mesh, each rank runs the recurrence on its batch rows
+    hs, *last = dt.local_heads(
+        scan, (_slstm_inputs(p, x), r_all, b_all,
+               *(st[k] for k in ("h", "c", "n", "m"))),
+        (1, None, None, 0, 0, 0, 0), (None,) * 7, (0,) * 5, (None,) * 5)
+    y = _slstm_ff(cfg, p, hs, x.dtype)                 # (B,T,d) f32 in
+    return y, (dict(zip(("h", "c", "n", "m"), last)) if return_state
+               else None)
 
 
 def slstm_decode(cfg, p, x: torch.Tensor, state: dict):

@@ -14,6 +14,10 @@ wd * p``, with the bias corrections at ``step + 1`` in f32.
 checkpoint, the reference's ``OptState``: the step count and the f32 slots
 by parameter name (``{"m": ..., "v": ...}`` for AdamW).
 
+On a mesh the parameters are DTensors: each gradient is first brought to
+its parameter's placements (``_like_param``), so the update runs on each
+rank's shard, and the slots are placed as their parameters.
+
 ``global_norm`` sums each tensor's squares, then the tensors in the order
 given.  The reference sums its pytree's leaves, each block leaf stacked
 over the super-blocks, where the port holds one tensor a super-block: the
@@ -27,6 +31,8 @@ from typing import Callable, Iterable, Union
 import numpy as np
 import torch
 
+from repro_torch.distributed import dtensor as dt
+
 Schedule = Union[float, Callable[[int], float]]
 
 
@@ -34,6 +40,15 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32 (a 0-d
     tensor)."""
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+def _like_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's placements (a partial sum
+    over the data axis reduced, a gathered one sharded again); any other
+    gradient as it is."""
+    if dt.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _schedule(lr: Schedule) -> Callable[[int], float]:
@@ -51,7 +66,7 @@ def _gradients(opt: torch.optim.Optimizer, grads, clip_norm):
         for p in group["params"]:
             g = p.grad if grads is None else grads.get(p)
             if g is not None:
-                found.append((group, p, g))
+                found.append((group, p, _like_param(g, p)))
     scale = None
     if clip_norm is not None and found:
         norm = global_norm(g for _, _, g in found)
@@ -153,11 +168,9 @@ class AdamW(torch.optim.Optimizer):
                         p.device) for b in (b1, b2))
             c1, c2 = corrections[key]
             state = self.state[p]
-            if "m" not in state:
-                state["m"] = torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device)
-                state["v"] = torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device)
+            if "m" not in state:   # f32 zeros placed as the parameter
+                state["m"] = torch.zeros_like(p, dtype=torch.float32)
+                state["v"] = torch.zeros_like(p, dtype=torch.float32)
             m, v = state["m"], state["v"]
             m.mul_(b1).add_((1 - b1) * g)
             v.mul_(b2).add_((1 - b2) * g.square())

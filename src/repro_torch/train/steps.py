@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import proxies as proxy_lib
+from repro_torch.distributed import dtensor as dt
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.classifier import ClassifierNet, classifier_loss
 from repro_torch.train import compression as comp_lib
@@ -78,7 +79,9 @@ def lm_train_step_fn(cfg: ModelConfig, model: lm_lib.LM,
     micro-batches' gradients in f32, one after another, as the reference's
     scan does; the weight slices are not renormalized (they sum to 1
     globally), so the sum is the whole weighted batch's gradient.  The
-    metrics are the last micro-batch's, as there.
+    metrics are the last micro-batch's, as there.  On a mesh each rank
+    splits its own rows of the batch (``dtensor.chunk_rows``), so every
+    micro-batch stays sharded over the data axis.
     """
 
     def step(batch: dict) -> dict:
@@ -88,10 +91,9 @@ def lm_train_step_fn(cfg: ModelConfig, model: lm_lib.LM,
             loss.backward()
             opt.step()
         else:
-            acc = {p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+            acc = {p: torch.zeros_like(p, dtype=torch.float32)
                    for p in model.parameters()}
-            parts = {k: v.chunk(microbatches, dim=0)
+            parts = {k: dt.chunk_rows(v, microbatches)
                      for k, v in batch.items()}
             for i in range(microbatches):
                 loss, metrics = lm_lib.lm_loss(

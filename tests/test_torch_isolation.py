@@ -65,7 +65,16 @@ def test_port_files_exist():
                  "src/repro_torch/launch/serve_selection.py",
                  "src/repro_torch/launch/serve.py",
                  "src/repro_torch/train/compression.py",
-                 "src/repro_torch/optim/optimizers.py"):
+                 "src/repro_torch/optim/optimizers.py",
+                 "src/repro_torch/distributed/__init__.py",
+                 "src/repro_torch/distributed/sharding.py",
+                 "src/repro_torch/distributed/hints.py",
+                 "src/repro_torch/distributed/dtensor.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/specs.py",
+                 "src/repro_torch/launch/elastic.py",
+                 "src/repro_torch/launch/comm_analysis.py",
+                 "src/repro_torch/launch/dryrun.py"):
         assert must in names
 
 
@@ -95,6 +104,10 @@ def test_trainer_import_loads_no_jax():
             "import repro_torch.launch.serve, repro_torch.optim; "
             "import repro_torch.train.compression; "
             "import repro_torch.models.moe, repro_torch.models.ssm; "
+            "import repro_torch.distributed.dtensor; "
+            "import repro_torch.launch.dryrun, repro_torch.launch.elastic; "
+            "import repro_torch.launch.mesh, repro_torch.launch.specs; "
+            "import repro_torch.launch.comm_analysis; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('ok')")
@@ -213,6 +226,9 @@ def test_lm_driver_refuses_the_cpu_without_being_asked():
     from repro_torch.models import lm
 
     for call in (lambda: train.main(["--smoke", "--steps", "1"]),
+                 lambda: train.main(["--smoke", "--steps", "1", "--fsdp"]),
+                 lambda: train.main(["--smoke", "--steps", "1",
+                                     "--mesh-data", "2"]),
                  lambda: lm.init_lm(get_smoke_config("gemma-2b")),
                  lambda: TokenStream(0, 2, 8, 96),
                  lambda: token_batch(0, 0, 0, 2, 8, 96)):
@@ -312,3 +328,24 @@ def test_moe_and_hybrid_entry_points_refuse_the_cpu_without_being_asked(
     # asked for explicitly, the CPU is fine
     model = lm.init_lm(cfg, device="cpu")
     assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_mesh_entry_points_refuse_the_cpu_without_being_asked():
+    """``make_host_mesh`` with no group installs a one-rank NCCL group for
+    the card unless the CPU is asked for; it never quietly takes gloo."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.make_host_mesh(1, 1)
+    mesh.close_host_group()
+    assert not dist.is_initialized()
+    try:
+        m = mesh.make_host_mesh(1, 1, "cpu")     # asked for: gloo
+        assert m.device_type == "cpu" and dist.get_backend() == "gloo"
+    finally:
+        mesh.close_host_group()
+    assert not dist.is_initialized()

@@ -125,15 +125,6 @@ def test_driver_runs_each_strategy_on_its_own_stream(strategy):
         assert sum(sel["weights"]) == pytest.approx(1.0, rel=1e-5)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh-data", "2"], "The rest of the LM side"),
-    (["--mesh-model", "2"], "The rest of the LM side"),
-    (["--fsdp"], "The rest of the LM side")])
-def test_driver_refuses_what_is_not_ported(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train.main(["--smoke", "--device", "cpu", *flags])
-
-
 SMALL = ["--smoke", "--device", "cpu", "--window", "4", "--micro-batch",
          "2", "--seq-len", "8", "--select-every", "3"]
 
